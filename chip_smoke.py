@@ -7,8 +7,9 @@ Phases, one report line each, any failure raising (non-zero exit):
 
 1. device: a CUDA device must be present (no CPU fallback); prints
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``;
-2. build: compiles ``frei_tpu_torch/csrc/sweep.cu`` with nvcc and
-   prints the build time and ptxas's register report;
+2. build: compiles ``frei_tpu_torch/csrc/sweep.cu`` and
+   ``csrc/iteration.cu`` with nvcc, both at once, and prints the build
+   time and ptxas's register report;
 3. kernel parity: each sweep kernel against its plain PyTorch twin on
    the card, fused and materialized opacity, some columns frozen:
    float64 at 64 columns (rtol 1e-10), float32 at 8192 columns (rtol
@@ -16,14 +17,25 @@ Phases, one report line each, any failure raising (non-zero exit):
    the change the sums' own difference makes to the update, see
    :func:`phase_parity`), with each kernel's time against its twin's at
    the 8192-column shape;
+3b. whole-iteration parity: the iteration kernel against its twin on
+   one RC step (float64 at 64 columns, every third frozen, rtol 1e-10;
+   float32 at 8192 columns), and the loop kernel against its twin
+   (float64 at 64 columns over 3 iterations with some columns converging
+   early; float32 at 8192 columns for 1 iteration); see
+   :func:`hold_step` for how a step is held; each kernel's time against
+   its twin's at the headline shape;
 4. goldens: ``Grid(..., device="cuda")`` + the synthetic fixture +
    ``emission_spectrum(n_timesteps=1)`` reproduce the published peak
    wavelength, peak flux and effective temperature through the kernels,
    and a float64 batched solve on the kernels agrees with the eager
    engine;
+4b. the same goldens through ``Grid.emission_spectra`` on the
+   ``"loop"`` and ``"iteration"`` engines;
 5. headline: the batched solve of 8192 columns x 500 bins x 30 layers,
-   20 fixed iterations, float32, on the ``"cuda"`` and ``"eager"``
-   engines: columns x bins per second, launch counts.
+   20 fixed iterations, float32, on the ``"loop"``, ``"iteration"``,
+   ``"cuda"`` and ``"eager"`` engines: columns x bins per second, peak
+   memory, launch counts (every count set to 0 before each engine's
+   run and read after it).
 
 The second-to-last line is a JSON record of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -36,6 +48,7 @@ import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -79,8 +92,9 @@ def ptxas_summary(report):
     registers and spills, named as ``emit<float, NPT=2>``."""
     out, kern, spill = [], None, ""
     for line in report.splitlines():
-        m = re.search(r"Compiling entry function '.*?(emit|absorb)_kernel"
-                      r"I([fd])Li(\d+)E", line)
+        m = re.search(r"Compiling entry function '.*?"
+                      r"(emit|absorb|iteration|loop)_kernelI([fd])Li(\d+)E",
+                      line)
         if m:
             kern = (f"{m[1]}<{'float' if m[2] == 'f' else 'double'}, "
                     f"NPT={m[3]}>")
@@ -260,6 +274,257 @@ def phase_parity(dtype, n, rtol, t_rtol, atol_frac, timing):
     return out
 
 
+def hold_temps(label, got, ref, dT_ref, num_got, num_ref, t_rtol):
+    """Temperatures after an update, held as phase 3 holds them: rtol
+    ``t_rtol`` plus the change the quadratures' own difference makes to
+    the update (numerators that differ by r <= 0.1 move dT by at most
+    0.105 r |dT|); layers with r > 0.1 cannot be resolved by the
+    quadratures' precision, must lie in the top three layers (none in
+    float64) and are counted, not compared.  Returns max err/bound."""
+    r_num = (num_got - num_ref).abs() / num_ref.abs()
+    resolved = r_num <= 0.1
+    t_atol = torch.where(resolved, 0.2 * dT_ref.abs() * r_num,
+                         float("inf"))
+    loose = sorted(set((~resolved).nonzero()[:, 1].tolist()))
+    q = check_close(label, got, ref, t_rtol, t_atol)
+    r, ab = rel_err(got[resolved], ref[resolved])
+    log(f"[parity] {label}: layers unresolved by the quadratures "
+        f"{int((~resolved).sum())} of {resolved.numel()} (layers {loose}); "
+        f"resolved max rel {r:.3e} max abs {ab:.3e} max err/bound {q:.3f}")
+    assert all(l >= N_LAYERS - 3 for l in loose), loose
+    if got.dtype == torch.float64:
+        assert not loose, loose
+    return q
+
+
+def hold_step(label, got, T, Fu, Fd, done, pack, params, rtol, t_rtol,
+              atol_frac, max_dT=None):
+    """Hold one RC step of a kernel, ``got = (T1, F_up, F_down, T2, dT2
+    or None, sums)``, against the plain twin's arithmetic on the same
+    inputs:
+
+    * the emit sweep of the twin at ``T`` and its absorb sweep at the
+      kernel's own T1 (so an unresolved T1 of an optically thin layer,
+      rounding noise in any engine, does not move the slabs it seeds):
+      slabs and both sweeps' quadratures at rtol plus atol_frac x max;
+    * the in-kernel epilogue: T1, T2 and dT2 (or the loop's ``max_dT``
+      of the step) against the torch epilogue on the kernel's own
+      quadratures, at ``t_rtol`` (every layer);
+    * T1 and T2 against the twin's, by :func:`hold_temps`.
+
+    Returns (max abs error of slabs and sums, max err/bound)."""
+    from frei_tpu_torch.ops import iteration_cuda as IC
+    from frei_tpu_torch.ops import sweep_cuda as S
+    T1, Fu2, Fd2, T2, dT2, sums = got
+    sc, pp, p = pack.sc, IC._pinned(params, T), IC._pressures(pack)
+    Fu1, Fd1, s_e = S.emit_plain(T, Fu, Fd, IC._sweep_kappa(T, pack), sc,
+                                 done)
+    T1_ref, dT1_ref = S.emit_epilogue(T, s_e, p, pp)
+    Fu2_ref, Fd2_ref, s_a = S.absorb_plain(T1, Fu1, Fd1,
+                                           IC._sweep_kappa(T1, pack), sc,
+                                           done)
+    T2_ref, dT2_ref = S.absorb_epilogue(T1, s_a, p, pp)
+    abs_err, worst = 0.0, 0.0
+    for field, a, b in (("F_up", Fu2, Fu2_ref), ("F_down", Fd2, Fd2_ref),
+                        ("emit sums", sums[:, 0], s_e),
+                        ("absorb sums", sums[:, 1], s_a)):
+        q = check_close(f"{label} {field}", a, b, rtol,
+                        atol_frac * float(b.abs().max()))
+        r, ab = rel_err(a, b)
+        abs_err, worst = max(abs_err, ab), max(worst, q)
+        log(f"[parity] {label} {field:11s} max rel {r:.3e} max abs "
+            f"{ab:.3e} max err/bound {q:.3f}")
+    T1_epi, _ = S.emit_epilogue(T, sums[:, 0], p, pp)
+    T2_epi, dT2_epi = S.absorb_epilogue(T1, sums[:, 1], p, pp)
+    epi = [("T1", T1, T1_epi, 0.0), ("T2", T2, T2_epi, 0.0)]
+    if dT2 is not None:
+        epi.append(("dT2", dT2, dT2_epi,
+                    t_rtol * float(dT2_epi.abs().max())))
+    if max_dT is not None:
+        epi.append(("max_dT", max_dT, dT2_epi.abs().amax(1), 0.0))
+    for field, a, b, atol in epi:
+        q = check_close(f"{label} epilogue {field}", a, b, t_rtol, atol)
+        log(f"[parity] {label} in-kernel epilogue {field:3s} vs torch's on "
+            f"the kernel's sums: max rel {rel_err(a, b)[0]:.3e} max "
+            f"err/bound {q:.3f}")
+    emit_num = (update_numerator(sums[:, 0], T, p, pp, True),
+                update_numerator(s_e, T, p, pp, True))
+    absorb_num = (update_numerator(sums[:, 1], T1, p, pp, False),
+                  update_numerator(s_a, T1, p, pp, False))
+    worst = max(worst,
+                hold_temps(f"{label} T1", T1, T1_ref, dT1_ref, *emit_num,
+                           t_rtol),
+                hold_temps(f"{label} T2", T2, T2_ref, dT2_ref, *absorb_num,
+                           t_rtol))
+    return abs_err, worst
+
+
+def iteration_inputs(grid, n):
+    """Phase 3's sweep inputs (seeded random flux states, every third
+    column frozen) and the grid's iteration pack."""
+    from frei_tpu_torch.ops import iteration_cuda as IC
+    T, Fu, Fd, _, done, params = sweep_inputs(grid, n)
+    pack = IC.make_iteration_pack(grid._consts, params,
+                                  *grid._kappa_fn.iteration_hook)
+    return T, Fu, Fd, done, pack, params
+
+
+def phase_iteration_parity():
+    """The whole-iteration kernels against their twins; returns
+    per-kernel records with the float32 headline-shape times."""
+    from frei_tpu_torch.ops import iteration_cuda as IC
+    it_rec = {"max_abs_err": 0.0, "err_over_tol": 0.0}
+    # one RC step: float64 at 64 columns, float32 at the headline width
+    for dtype, n, rtol, t_rtol, atol_frac in (
+            (torch.float64, PARITY64_COLUMNS, 1e-10, 1e-10, 1e-13),
+            (torch.float32, N_COLUMNS, 1e-4, 1e-5, 1e-7)):
+        T, Fu, Fd, done, pack, params = iteration_inputs(make_grid(dtype),
+                                                         n)
+        got = IC.rc_iteration_kernel(T, Fu, Fd, done, pack, params,
+                                     with_sums=True)
+        torch.cuda.synchronize()
+        again = IC.rc_iteration_kernel(T, Fu, Fd, done, pack, params,
+                                       with_sums=True)
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), \
+            "repeated iteration launches differ"
+        frozen = done.nonzero()[:, 0]
+        assert torch.equal(got[1][frozen], Fu[frozen]) and torch.equal(
+            got[2][frozen], Fd[frozen]), "frozen columns moved"
+        err, q = hold_step(f"iteration {str(dtype):13s} B={n:5d}", got, T,
+                           Fu, Fd, done, pack, params, rtol, t_rtol,
+                           atol_frac)
+        it_rec["max_abs_err"] = max(it_rec["max_abs_err"], err)
+        it_rec["err_over_tol"] = max(it_rec["err_over_tol"], q)
+        if dtype == torch.float32:
+            scal = params._replace(g=float(params.g),
+                                   m_bar=float(params.m_bar),
+                                   alpha=float(params.alpha))
+            it_rec["ms"] = time_ms(lambda: IC.rc_iteration_kernel(
+                T, Fu, Fd, done, pack, scal), 10)
+            it_rec["plain_ms"] = time_ms(lambda: IC.rc_iteration_plain(
+                T, Fu, Fd, done, pack, scal), 2)
+            log(f"[timing] iteration kernel {it_rec['ms']:.4f} ms, plain "
+                f"twin {it_rec['plain_ms']:.4f} ms per RC step (B={n}, "
+                f"L={N_LAYERS}, W={N_BINS}, {dtype})")
+
+    # the whole loop, float64: 64 columns, 3 iterations from the solver's
+    # state (zero fluxes), a threshold between two columns' second
+    # iteration max|dT| so that some columns freeze early
+    g64 = make_grid(torch.float64)
+    T = columns(g64, PARITY64_COLUMNS, seed=4)
+    Fz = torch.zeros((PARITY64_COLUMNS, N_LAYERS, N_BINS),
+                     dtype=torch.float64, device=g64.device)
+    _, params = solver_args(g64)[:2]
+    pack = IC.make_iteration_pack(g64._consts, params,
+                                  *g64._kappa_fn.iteration_hook)
+    probe = IC.rc_loop_plain(T, Fz, Fz, pack, params, 3, 10 ** 6, 0.0)
+    v = torch.sort(probe[4][:, 1]).values
+    k = PARITY64_COLUMNS // 2
+    cdT = float(0.5 * (v[k] + v[k + 1]))
+    # counters, flags and the history mask: exact against the twin's
+    # whole loop
+    ref = IC.rc_loop_plain(T, Fz, Fz, pack, params, 3, 2, cdT)
+    runs = [IC.rc_loop_kernel(T, Fz, Fz, pack, params, n, 2, cdT,
+                              with_sums=True) for n in range(4)]
+    torch.cuda.synchronize()
+    got = runs[3]
+    log(f"[parity] loop float64 B={PARITY64_COLUMNS} 3 iterations, "
+        f"convergence_dT {cdT:.4f} K: n_iters counts "
+        f"{torch.bincount(ref[5], minlength=4).tolist()}")
+    assert ref[5].min() < 3, "no column converged early"
+    for field, a, b in (("n_iters", got[5], ref[5]),
+                        ("converged", got[6], ref[6]),
+                        ("history mask", got[3] != 0, ref[3] != 0)):
+        assert torch.equal(a, b), f"loop float64 {field} differs"
+    d = max(rel_err(a, b)[0] for a, b in zip(got[:5], ref[:5]))
+    log(f"[parity] loop float64 whole trajectory vs the twin's: max rel "
+        f"{d:.3e} (updates of the optically thin top layers amplify "
+        f"summation order; held step by step below)")
+    # the trajectory, step by step: a run of n iterations is the 3-
+    # iteration run cut after n, and each step, from the kernel's own
+    # state, is held as the iteration kernel's step is
+    rec = {"max_abs_err": 0.0, "err_over_tol": 0.0}
+    for n in range(1, 4):
+        prev, cur = runs[n - 1], runs[n]
+        assert torch.equal(cur[3][:, :2 * n], got[3][:, :2 * n]), \
+            f"loop cut after {n} iterations left another history"
+        live = cur[5] == n
+        assert torch.equal(cur[0][~live], prev[0][~live]) and torch.equal(
+            cur[1][~live], prev[1][~live]), "a converged column moved"
+        err, q = hold_step(
+            f"loop float64 step {n} B={int(live.sum())}",
+            (cur[3][live, 2 * n - 2], cur[1][live], cur[2][live],
+             cur[3][live, 2 * n - 1], None, cur[7][live]),
+            prev[0][live], prev[1][live], prev[2][live], None, pack,
+            params, 1e-10, 1e-10, 1e-13, max_dT=cur[4][live, n - 1])
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        rec["err_over_tol"] = max(rec["err_over_tol"], q)
+
+    # the whole loop, float32 at the headline width, one iteration from
+    # phase 3's random states: a step held as above
+    T, Fu, Fd, _, pack, params = iteration_inputs(make_grid(torch.float32),
+                                                  N_COLUMNS)
+    got = IC.rc_loop_kernel(T, Fu, Fd, pack, params, 1, 10 ** 6, 0.0,
+                            with_sums=True)
+    torch.cuda.synchronize()
+    tout, fu, fd, hist, maxdt, n_iters, conv, sums = got
+    assert torch.equal(tout, hist[:, 1]) and (n_iters == 1).all() \
+        and not conv.any()
+    err, q = hold_step(f"loop 1 iteration float32 B={N_COLUMNS}",
+                       (hist[:, 0], fu, fd, tout, None, sums), T, Fu, Fd,
+                       None, pack, params, 1e-4, 1e-5, 1e-7,
+                       max_dT=maxdt[:, 0])
+    rec["max_abs_err"] = max(rec["max_abs_err"], err)
+    rec["err_over_tol"] = max(rec["err_over_tol"], q)
+
+    # times at the headline's horizon, from the solver's state
+    g32 = make_grid(torch.float32)
+    T = columns(g32, N_COLUMNS)
+    Fz = torch.zeros((N_COLUMNS, N_LAYERS, N_BINS), dtype=torch.float32,
+                     device=g32.device)
+    _, params = solver_args(g32)[:2]
+    pack = IC.make_iteration_pack(g32._consts, params,
+                                  *g32._kappa_fn.iteration_hook)
+    scal = params._replace(g=float(params.g), m_bar=float(params.m_bar),
+                           alpha=float(params.alpha))
+    rec["ms"] = time_ms(lambda: IC.rc_loop_kernel(
+        T, Fz, Fz, pack, scal, N_ITERS, 10 ** 6, 0.0), 3)
+    rec["plain_ms"] = time_ms(lambda: IC.rc_loop_plain(
+        T, Fz, Fz, pack, scal, N_ITERS, 10 ** 6, 0.0), 1)
+    log(f"[timing] loop kernel {rec['ms']:.4f} ms, plain twin "
+        f"{rec['plain_ms']:.4f} ms per {N_ITERS}-iteration loop "
+        f"(B={N_COLUMNS}, L={N_LAYERS}, W={N_BINS}, float32)")
+    return {"iteration": it_rec, "loop": rec}
+
+
+def phase_goldens_whole(engine):
+    """The goldens through ``Grid.emission_spectra`` on ``engine``."""
+    from frei_tpu_torch import Spectrum, effective_temperature
+    from frei_tpu_torch.ops import iteration_cuda as IC
+    wrap = {"loop": IC.rc_loop_kernel,
+            "iteration": IC.rc_iteration_kernel}[engine]
+    grid = make_grid(torch.float32)
+    n0 = wrap.launches
+    spec, temps, hist, dtaus = grid.emission_spectra(
+        np.asarray(grid.init_temperatures)[None, :], n_timesteps=1,
+        engine=engine)
+    n = wrap.launches - n0
+    flux = spec.flux_cgs[0]
+    i = int(np.argmax(flux))
+    lam_peak, peak = float(spec.wavelength_um[i]), float(flux[i])
+    T_eff = effective_temperature(
+        grid, Spectrum(wavelength_um=spec.wavelength_um, flux_cgs=flux),
+        dtaus[0], temps[0])
+    log(f"[goldens] engine={engine}: peak {lam_peak:.4f} um, flux "
+        f"{peak:.4e} erg/s/cm^3, T_eff {T_eff:.1f} K, {engine} kernel "
+        f"launches {n}")
+    assert abs(lam_peak - 1.1518) < 0.02, lam_peak
+    assert abs(peak - 1.296e13) < 0.1e13, peak
+    assert abs(T_eff - 2400.0) < 200.0, T_eff
+    assert n > 0, f"goldens on {engine} bypassed its kernel"
+    assert hist.shape == (1, N_LAYERS, 2)
+
+
 def phase_goldens():
     from frei_tpu_torch import effective_temperature
     from frei_tpu_torch.ops import sweep_cuda as S
@@ -300,19 +565,31 @@ def phase_goldens():
     assert torch.equal(rk.n_iterations, re.n_iterations)
 
 
-def phase_headline():
+def kernel_wrappers():
+    """Each kernel's wrapper, by the kernel's name in the JSON record."""
+    from frei_tpu_torch.ops import iteration_cuda as IC
     from frei_tpu_torch.ops import sweep_cuda as S
+    return {"emit_sweep": S.emit_kernel, "absorb_sweep": S.absorb_kernel,
+            "rc_iteration": IC.rc_iteration_kernel,
+            "rc_loop": IC.rc_loop_kernel}
+
+
+def phase_headline():
+    """Each engine's headline solve: one warm-up and three timed solves,
+    every launch count set to 0 just before and read just after."""
     from frei_tpu_torch.rt.solver import SolverConfig, solve_rc_batched
+    wrappers = kernel_wrappers()
     grid = make_grid(torch.float32)
     T0 = columns(grid, N_COLUMNS)
     args = solver_args(grid)
     res = {}
-    for engine in ("cuda", "eager"):
+    for engine in ("loop", "iteration", "cuda", "eager"):
         cfg = SolverConfig(n_timesteps=N_ITERS, n_zero_crossings=10 ** 6,
                            convergence_dT=0.0, engine=engine)
-        if engine == "cuda":     # the main path's run: counts from zero
-            S.emit_kernel.launches = S.absorb_kernel.launches = 0
-        n0 = (S.emit_kernel.launches, S.absorb_kernel.launches)
+        for w in wrappers.values():
+            w.launches = 0
+        out = None       # the last engine's result leaves the card first
+        torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         out = solve_rc_batched(T0, *args, cfg)      # warm-up
         torch.cuda.synchronize()
@@ -322,27 +599,37 @@ def phase_headline():
             out = solve_rc_batched(T0, *args, cfg)
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
-        n1 = (S.emit_kernel.launches, S.absorb_kernel.launches)
+        launches = {k: w.launches for k, w in wrappers.items()}
         assert torch.isfinite(out.flux).all(), f"{engine}: non-finite flux"
         assert out.flux.shape == (N_COLUMNS, N_BINS)
         wall = min(walls)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        # a copy: the flux view would keep the whole F_up slab alive
         res[engine] = dict(wall=wall, rate=N_COLUMNS * N_BINS / wall,
-                           launches=(n1[0] - n0[0], n1[1] - n0[1]),
-                           flux=out.flux)
-        log(f"[headline] engine={engine:5s} {N_COLUMNS} columns x "
+                           launches=launches, flux=out.flux.clone(),
+                           peak_gb=peak_gb)
+        log(f"[headline] engine={engine:9s} {N_COLUMNS} columns x "
             f"{N_BINS} bins x {N_LAYERS} layers x {N_ITERS} iterations "
             f"float32: walls {', '.join(f'{w:.4f}' for w in walls)} s, "
             f"{res[engine]['rate']:,.0f} columns*bins/s (best), peak "
-            f"memory {peak_gb:.2f} GB, launches emit "
-            f"{n1[0] - n0[0]} absorb {n1[1] - n0[1]}")
-    assert min(res["cuda"]["launches"]) > 0, "main path bypassed the kernels"
-    assert res["eager"]["launches"] == (0, 0), "eager engine ran a kernel"
-    d = (res["cuda"]["flux"] - res["eager"]["flux"]).abs().max()
-    log(f"[headline] cuda vs eager after {N_ITERS} unconverged float32 "
-        f"iterations: max |dflux| / max flux "
-        f"{float(d / res['eager']['flux'].abs().max()):.3e} (trajectories "
-        f"diverge chaotically in float32; not asserted)")
+            f"memory {peak_gb:.2f} GB, launches over 4 solves "
+            f"{json.dumps(launches)}")
+    main_path = {"cuda": ("emit_sweep", "absorb_sweep"),
+                 "iteration": ("rc_iteration", "emit_sweep"),
+                 "loop": ("rc_loop", "emit_sweep")}
+    for engine, names in main_path.items():
+        got = res[engine]["launches"]
+        assert all(got[k] > 0 for k in names), \
+            f"engine {engine} bypassed its kernels: {got}"
+    assert not any(res["eager"]["launches"].values()), \
+        "eager engine ran a kernel"
+    ref = res["eager"]["flux"]
+    for engine in ("loop", "iteration", "cuda"):
+        d = (res[engine]["flux"] - ref).abs().max()
+        log(f"[headline] {engine} vs eager after {N_ITERS} unconverged "
+            f"float32 iterations: max |dflux| / max flux "
+            f"{float(d / ref.abs().max()):.3e} (trajectories diverge "
+            f"chaotically in float32; not asserted)")
     return res
 
 
@@ -351,6 +638,7 @@ def main():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
                  "run needs an NVIDIA GPU")
     sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from frei_tpu_torch.ops import iteration_cuda as IC
     from frei_tpu_torch.ops import sweep_cuda as S
 
     # phase 1: device
@@ -366,13 +654,14 @@ def main():
         f"{torch.version.cuda}; TF32 off for matmul and cuDNN")
     log(smi)
 
-    # phase 2: build
+    # phase 2: build, one nvcc per source, all started together
     t0 = time.perf_counter()
-    report = S.build()
-    log(f"[build] csrc/sweep.cu -> csrc/build/libfrei_sweep.so in "
-        f"{time.perf_counter() - t0:.1f} s"
-        + ("" if report else " (already built)"))
-    for line in ptxas_summary(report):
+    with ThreadPoolExecutor(2) as pool:
+        reports = list(pool.map(lambda m: m.build(), (S, IC)))
+    log(f"[build] csrc/sweep.cu -> libfrei_sweep.so and csrc/iteration.cu "
+        f"-> libfrei_iteration.so in {time.perf_counter() - t0:.1f} s"
+        + ("" if all(reports) else " (some already built)"))
+    for line in ptxas_summary("".join(reports)):
         log(f"[build] {line}")
 
     # phase 3: kernel parity and kernel times
@@ -381,28 +670,44 @@ def main():
     recs = phase_parity(torch.float32, N_COLUMNS, 1e-4, 1e-5, 1e-7,
                         timing=True)
 
+    # phase 3b: the whole-iteration kernels against their twins
+    whole = phase_iteration_parity()
+
     # phase 4: goldens through Grid(device="cuda")
     phase_goldens()
+    # phase 4b: the same goldens on the whole-iteration engines
+    for engine in ("loop", "iteration"):
+        phase_goldens_whole(engine)
 
     # phase 5: the headline solve
     head = phase_headline()
-    log(f"[headline] on {smi}: cuda {head['cuda']['rate']:,.0f} vs eager "
-        f"{head['eager']['rate']:,.0f} columns*bins/s")
+    log(f"[headline] on {smi}: " + ", ".join(
+        f"{e} {head[e]['rate']:,.0f}" for e in head) + " columns*bins/s")
 
     kernels = []
-    for i, k in enumerate(("emit", "absorb")):
+    for k in ("emit", "absorb"):
         r = recs[k]
         kernels.append({
             "name": f"{k}_sweep", "route": "cuda",
             "source": "frei_tpu_torch/csrc/sweep.cu",
             "replaces": ("frei_tpu/ops/sweep_pallas.py:428" if k == "emit"
                          else "frei_tpu/ops/sweep_pallas.py:484"),
-            "launches": head["cuda"]["launches"][i],
+            "launches": head["cuda"]["launches"][f"{k}_sweep"],
             "max_abs_err": r["max_abs_err"],
             "err_over_tol": r["err_over_tol"],
             "ms": r["ms_fused"], "plain_ms": r["plain_ms_fused"],
             "ms_materialized": r["ms_materialized"],
             "plain_ms_materialized": r["plain_ms_materialized"]})
+    for k, line in (("iteration", 163), ("loop", 297)):
+        r = whole[k]
+        kernels.append({
+            "name": f"rc_{k}", "route": "cuda",
+            "source": "frei_tpu_torch/csrc/iteration.cu",
+            "replaces": f"frei_tpu/ops/iteration_pallas.py:{line}",
+            "launches": head[k]["launches"][f"rc_{k}"],
+            "max_abs_err": r["max_abs_err"],
+            "err_over_tol": r["err_over_tol"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": name,

@@ -288,8 +288,8 @@ class Grid:
                          init_fluxes=None):
         """Batched emission spectra for (C, L) initial profiles [K].
 
-        ``engine`` is "auto", "eager" or "cuda" (see
-        ``rt.solver``); ``init_fluxes`` an optional ((C, L, W),
+        ``engine`` is "auto", "eager", "cuda", "iteration" or "loop"
+        (see ``rt.solver``); ``init_fluxes`` an optional ((C, L, W),
         (C, L, W)) warm-start pair.  Returns ``(spec with (C, W) flux,
         final_temps (C, L), temperature_history (C, L, n_recorded),
         dtaus (C, L, W))``; per-column results equal single-column

@@ -44,3 +44,19 @@ class MockChemistry:
         scale = torch.as_tensor(self.species_masses_g / self.m_bar_g,
                                 dtype=v.dtype, device=v.device)
         return v * scale.reshape(scale.shape + (1,) * (v.ndim - 1))
+
+    def layer_ln_mmr_tables(self, pressures_cgs):
+        """Layer-factored form for the whole-iteration kernels: a
+        (log10 T grid (2,), ln-MMR table (L, 2, S)) pair such that
+        ``mmr = exp(interp_logT(table[l]))`` with clipped interpolation
+        (`frei_tpu/chemistry/mocks.py:48-58`).  Constant chemistry is a
+        trivial 2-point grid.  Tensors in the pressures' dtype and on
+        their device."""
+        p = pressures_cgs
+        L = p.shape[0]
+        S = self.species_masses_g.shape[0]
+        ln_mmr = torch.log(MOCK_VMR * torch.as_tensor(
+            self.species_masses_g, dtype=p.dtype, device=p.device)
+            / self.m_bar_g)
+        tab = ln_mmr[None, None, :].expand(L, 2, S).contiguous()
+        return torch.tensor([0.0, 10.0], dtype=p.dtype, device=p.device), tab

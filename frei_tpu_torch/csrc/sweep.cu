@@ -57,6 +57,9 @@
 //   * The `done` freeze is a masked store: a frozen column writes its old
 //     rows back (read only when frozen) and still reports its sums.
 //
+// The couplers and the quadrature partials are in twostream.cuh, shared
+// with the whole-iteration kernels of iteration.cu.
+//
 // Bound to PyTorch through plain extern "C" launchers loaded with ctypes.
 // Each launcher returns cudaGetLastError() after the launch; it launches
 // on the caller's stream and does not synchronize.
@@ -64,87 +67,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "twostream.cuh"
+
 namespace {
 
+using namespace frei;
+
 constexpr int kMaxThreads = 256;
-
-template <typename T> __device__ __forceinline__ T expm1_t(T x);
-template <> __device__ __forceinline__ float expm1_t<float>(float x) {
-  return expm1f(x);
-}
-template <> __device__ __forceinline__ double expm1_t<double>(double x) {
-  return expm1(x);
-}
-
-template <typename T> __device__ __forceinline__ T rsqrt_t(T x);
-template <> __device__ __forceinline__ float rsqrt_t<float>(float x) {
-  return rsqrtf(x);
-}
-template <> __device__ __forceinline__ double rsqrt_t<double>(double x) {
-  return rsqrt(x);
-}
-
-template <typename T>
-struct Couplers {
-  T a, b, s_up, s_down;
-};
-
-// two_stream_couplers_g0 of frei_tpu_torch/ops/twostream.py, term by term.
-template <typename T>
-__device__ __forceinline__ Couplers<T> couplers_g0(T dtau, T om, T B1, T B2) {
-  const T E = om > T(0.1) ? (T(1.225) - T(0.1777) * om) - T(0.05582) * (om * om)
-                          : T(1);
-  const T d = E - om;
-  const T s = rsqrt_t<T>(E * d);
-  const T k_hat = E * d * s;
-  const T ratio = d * s;
-  const T zp = T(0.5) * (T(1) + ratio);
-  const T zm = T(0.5) * (T(1) - ratio);
-  const T em = expm1_t<T>(T(-2) * k_hat * dtau);  // transmission - 1
-  const T tr = T(1) + em;
-  const T zmT_zp = zm * tr + zp;
-  const T chi = (zm * tr - zp) * zmT_zp;
-  const T psi = (zm - zp) * tr;
-  const T chi_p_xi = (zm - zp) * (zm * (tr * tr) + zp);
-  const T grad = (B1 - B2) * (em / dtau) * zmT_zp * (T(0.5) * s * s * d);
-  const T s_up_raw = B2 * chi_p_xi - psi * B1 + grad;
-  const T s_down_raw = B1 * chi_p_xi - psi * B2 - grad;
-  const T inv_dchi = T(1) / (d * chi);
-  const T inv_chi = d * inv_dchi;
-  const T pi_scale = (T(3.14159265358979323846) * (T(1) - om)) * inv_dchi;
-  const T xi = chi_p_xi - chi;
-  Couplers<T> c;
-  c.a = psi * inv_chi;
-  c.b = xi * inv_chi;
-  c.s_up = s_up_raw * pi_scale;
-  c.s_down = s_down_raw * pi_scale;
-  return c;
-}
-
-template <typename T>
-__device__ __forceinline__ T warp_sum(T v) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;  // lane 0 holds the warp's total
-}
-
-// Quadratures: each warp reduces its threads' partials for one slot and
-// lane 0 stores the warp total at part[slot * nwarps + warp]; after the
-// sweep's one closing barrier, the block total of a slot is the sum over
-// warps in warp order.  The order is fixed, so repeated runs give
-// identical bits, and no warp waits for another inside the layer loop.
-template <typename T>
-__device__ __forceinline__ void warp_partial(T v, T* part, int slot) {
-  v = warp_sum(v);
-  if ((threadIdx.x & 31) == 0) part[slot * (blockDim.x >> 5) + (threadIdx.x >> 5)] = v;
-}
-
-template <typename T>
-__device__ __forceinline__ T slot_total(const T* part, int slot) {
-  const int nw = blockDim.x >> 5;
-  T t = T(0);
-  for (int w = 0; w < nw; ++w) t += part[slot * nw + w];
-  return t;
-}
 
 struct SweepArgs {
   const void* dtf;      // (L-1,) dtau factor per swept layer
@@ -464,11 +393,9 @@ int launch(const void* dtf, const void* done, const void* temps, const void* ohs
            const void* tw, void* F_up_out, void* F_down_out, void* sums, void* dtaus,
            int B, int L, int W, int K, void* stream) {
   if (B <= 0) return 0;
-  int npt = 1;
-  while ((W + npt - 1) / npt > kMaxThreads && npt < 8) npt *= 2;
-  const int per = (W + npt - 1) / npt;
-  if (per > kMaxThreads || L < 3 || (!EMIT && dtaus)) return (int)cudaErrorInvalidValue;
-  const int threads = ((per + 31) / 32) * 32;
+  int npt, threads;
+  if (!block_shape(W, &npt, &threads) || L < 3 || (!EMIT && dtaus))
+    return (int)cudaErrorInvalidValue;
   SweepArgs a;
   a.dtf = dtf;
   a.done = static_cast<const uint8_t*>(done);

@@ -1,7 +1,8 @@
 """Carry the JAX package's objects over to this package.
 
 Each function takes an object of ``frei_tpu`` (an opacity stack, layer
-tables, solver constants, physics parameters or a solve result), reads
+tables, solver constants, physics parameters, an iteration-kernel
+constant pack or a solve result), reads
 its arrays through ``np.asarray`` and returns this package's
 counterpart as tensors of the given ``dtype`` on the given ``device``.
 Nothing here imports JAX: any object with the same fields converts.
@@ -12,12 +13,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import constants as const
 from ..opacity.tables import LayerKappaTables, OpacityStack
+from ..ops.iteration_cuda import IterationPack
+from ..ops.sweep_cuda import SweepConsts
 from ..rt.physics import PhysicsParams
 from ..rt.solver import RTConstants
 
 __all__ = ["to_opacity_stack", "to_layer_tables", "to_rt_constants",
-           "to_physics_params", "to_resume_state"]
+           "to_physics_params", "to_iteration_pack", "to_resume_state"]
 
 
 def _t(x, dtype, device):
@@ -61,6 +65,27 @@ def to_physics_params(params, dtype=torch.float64,
     return PhysicsParams(g=field(params.g), m_bar=field(params.m_bar),
                          alpha=field(params.alpha),
                          n_dof=int(params.n_dof))
+
+
+def to_iteration_pack(pack, dtype=torch.float64,
+                      device="cpu") -> IterationPack:
+    """``IterationPack`` with the same tables, grids and rows as a JAX
+    ``IterationPack``: its (1, N) rows become 1-D, and the Planck rows
+    are computed from its wavelengths as ``make_sweep_consts`` does."""
+    def row(x):
+        return _t(x, dtype, device).reshape(-1)
+    sc = pack.sc
+    lam = row(sc.lam)
+    return IterationPack(
+        sc=SweepConsts(dtf_emit=row(sc.dtf_emit),
+                       dtf_absorb=row(sc.dtf_absorb),
+                       c1=2.0 * const.h * const.c ** 2 / lam ** 5,
+                       xrow=const.hc_over_k / lam, sigma=row(sc.sigma),
+                       f_toa=row(sc.f_toa), tw=row(sc.tw)),
+        k_tgrid=row(pack.k_tgrid), k_tab=_t(pack.k_tab, dtype, device),
+        c_tgrid=row(pack.c_tgrid), c_tab=_t(pack.c_tab, dtype, device),
+        p1e=row(pack.p1e), p2e=row(pack.p2e), p1a=row(pack.p1a),
+        p2a=row(pack.p2a))
 
 
 def to_resume_state(result, dtype=torch.float64, device="cpu"):

@@ -26,11 +26,7 @@ case the kernel contracts them itself and adds sigma.
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import subprocess
 import threading
-from pathlib import Path
 from typing import NamedTuple
 
 import torch
@@ -38,6 +34,7 @@ import torch
 from .. import constants as const
 from ..rt import physics
 from ..rt.sweeps import top_pressure
+from .cuda_build import BUILD_DIR, CSRC, build_library, load_library
 from .twostream import two_stream_couplers_g0
 
 __all__ = ["SweepConsts", "make_sweep_consts", "emit_kernel",
@@ -45,13 +42,8 @@ __all__ = ["SweepConsts", "make_sweep_consts", "emit_kernel",
            "emit_epilogue", "absorb_epilogue", "emit_sweep_cuda",
            "absorb_sweep_cuda", "build"]
 
-_CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_SOURCE = _CSRC / "sweep.cu"
-_BUILD_DIR = _CSRC / "build"
-_LIB_PATH = _BUILD_DIR / "libfrei_sweep.so"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
+_SOURCE = CSRC / "sweep.cu"
+_LIB_PATH = BUILD_DIR / "libfrei_sweep.so"
 
 
 class SweepConsts(NamedTuple):
@@ -205,58 +197,23 @@ _lib = None
 _lib_lock = threading.Lock()
 
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME:
-        cand = Path(CUDA_HOME) / "bin" / "nvcc"
-        if cand.exists():
-            return str(cand)
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: the sweep kernels need the "
-                           "CUDA toolkit to build")
-    return found
-
-
 def build() -> str:
-    """Compile ``csrc/sweep.cu`` into ``csrc/build/libfrei_sweep.so``
-    unless a library newer than the source is there.  Returns the
-    compiler's output (ptxas register and shared-memory report), or an
-    empty string when nothing was built.
-
-    The library is compiled to a per-process temporary name and moved
-    into place, so concurrent processes never load a partial file."""
-    if (_LIB_PATH.exists()
-            and _LIB_PATH.stat().st_mtime >= _SOURCE.stat().st_mtime):
-        return ""
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = _LIB_PATH.with_name(f".{_LIB_PATH.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, _LIB_PATH)
-    finally:
-        if tmp.exists():
-            tmp.unlink()
-    return proc.stdout + proc.stderr
+    """Compile ``csrc/sweep.cu`` (with the shared ``csrc/*.cuh``) into
+    ``csrc/build/libfrei_sweep.so`` unless the library is newer than all
+    of them.  Returns the compiler's output, or an empty string when
+    nothing was built."""
+    return build_library(_SOURCE, _LIB_PATH)
 
 
 def _library():
     global _lib
     with _lib_lock:
         if _lib is None:
-            build()
-            lib = ctypes.CDLL(str(_LIB_PATH))
-            for name in ("frei_emit_sweep_f32", "frei_emit_sweep_f64",
-                         "frei_absorb_sweep_f32", "frei_absorb_sweep_f64"):
-                fn = getattr(lib, name)
-                fn.argtypes = ([ctypes.c_void_p] * 17
-                               + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-                fn.restype = ctypes.c_int
-            _lib = lib
+            sig = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            _lib = load_library(_SOURCE, _LIB_PATH, {
+                name: sig for name in (
+                    "frei_emit_sweep_f32", "frei_emit_sweep_f64",
+                    "frei_absorb_sweep_f32", "frei_absorb_sweep_f64")})
     return _lib
 
 

@@ -9,15 +9,22 @@ and finish with one more emit for the output spectrum.
 
 The iteration is a Python loop over batched tensors.  Converged columns
 freeze through ``torch.where`` selects, so every column follows the
-trajectory it would follow alone.  Two sweep engines:
+trajectory it would follow alone.  Engines:
 
 * ``"eager"``: the plain PyTorch sweeps of ``rt.sweeps`` (the
   counterpart of the JAX package's ``"xla"`` engine), on any device;
 * ``"cuda"``: the hand-written sweep kernels of ``ops.sweep_cuda``,
   with the opacity contraction and the convergence freeze inside the
-  kernels; CUDA tensors only.
+  kernels; CUDA tensors only;
+* ``"iteration"`` (JAX ``"pallas-iteration"``): one kernel of
+  ``ops.iteration_cuda`` per RC step, chemistry, opacity and both
+  temperature updates included;
+* ``"loop"`` (JAX ``"pallas-loop"``): one kernel runs the whole
+  fixed-horizon loop, then one final emit.
 
-``"auto"`` picks ``"cuda"`` for CUDA tensors and ``"eager"`` otherwise.
+The last two need a κ model with an ``iteration_hook`` and one shared
+planet; on CPU tensors they run their kernels' plain twins.  ``"auto"``
+picks ``"cuda"`` for CUDA tensors and ``"eager"`` otherwise.
 """
 
 from __future__ import annotations
@@ -32,7 +39,8 @@ from .sweeps import absorb_sweep, emit_sweep
 __all__ = ["SolverConfig", "RTConstants", "RTResult", "solve_rc",
            "solve_rc_batched"]
 
-ENGINES = ("auto", "eager", "cuda")
+ENGINES = ("auto", "eager", "cuda", "iteration", "loop")
+_JAX_NAMES = {"pallas-iteration": "iteration", "pallas-loop": "loop"}
 
 
 class SolverConfig(NamedTuple):
@@ -43,7 +51,7 @@ class SolverConfig(NamedTuple):
     convergence_dT: float = 3.0    # [K] (`core.py:233`)
     associative: bool = False      # log-depth layer scan: not ported yet
     progress: bool = False         # print per-iteration telemetry
-    engine: str = "auto"           # "auto" | "eager" | "cuda"
+    engine: str = "auto"           # see ENGINES
     bins_axis: str = ""            # bins-sharded solves: not ported yet
     differentiable: bool = False   # reverse-mode solve: not ported yet
 
@@ -99,10 +107,11 @@ def _push_history(T_new, cs: _ConvState) -> _ConvState:
 
 def _resolve_engine(engine: str, device: torch.device) -> str:
     if engine not in ENGINES:
-        if engine.startswith(("pallas-iteration", "pallas-loop")):
-            raise NotImplementedError(
-                f"engine {engine!r} (the whole-iteration kernels) is "
-                "ROADMAP queue 2 items 3-4, still to port")
+        for jax_name, ours in _JAX_NAMES.items():
+            if engine.startswith(jax_name):
+                raise ValueError(
+                    f"engine {engine!r} is the JAX package's name; this "
+                    f"package's counterpart is engine {ours!r}")
         raise ValueError(f"unknown sweep engine {engine!r} "
                          f"(expected one of {ENGINES})")
     if engine == "auto":
@@ -111,6 +120,34 @@ def _resolve_engine(engine: str, device: torch.device) -> str:
         raise ValueError("engine 'cuda' needs CUDA tensors; the solve's "
                          f"tensors are on {device}")
     return engine
+
+
+def _per_column(consts, params) -> bool:
+    return consts.F_toa.ndim != 1 or any(
+        torch.as_tensor(x).ndim for x in (params.g, params.m_bar,
+                                           params.alpha))
+
+
+def _check_whole_iteration(engine, cfg: SolverConfig, consts, params,
+                           hook):
+    """The JAX package's guards of its whole-iteration engines
+    (`frei_tpu/rt/solver.py:444-476`), with this package's engine
+    names."""
+    if _per_column(consts, params):
+        # the kernels bake F_toa / g into their constant pack
+        raise ValueError(
+            f"engine {engine!r} does not support per-column params / "
+            "F_toa (population mode); use engine 'cuda' or 'eager'")
+    if cfg.bins_axis:
+        # the kernels compute the dT epilogue from their own quadratures
+        # with no all-reduce over a bins-sharded mesh
+        raise ValueError(
+            f"engine {engine!r} does not support a bins-sharded mesh "
+            "(cfg.bins_axis); use engine 'cuda'")
+    if hook is None:
+        raise ValueError(
+            f"engine {engine!r} needs a layer-factored kappa model "
+            "(kappa_all.iteration_hook)")
 
 
 def _check_supported(cfg: SolverConfig, consts, params):
@@ -124,9 +161,7 @@ def _check_supported(cfg: SolverConfig, consts, params):
     if cfg.bins_axis:
         raise NotImplementedError(
             "bins_axis (bins-sharded solves) is ROADMAP queue 1 item 14")
-    if consts.F_toa.ndim != 1 or any(
-            torch.as_tensor(x).ndim for x in (params.g, params.m_bar,
-                                               params.alpha)):
+    if _per_column(consts, params):
         raise NotImplementedError(
             "per-column g / m_bar / alpha / F_toa (population mode) is "
             "ROADMAP queue 1 item 9")
@@ -142,15 +177,20 @@ def solve_rc_batched(init_temps, consts: RTConstants, params: PhysicsParams,
     ``kappa_all(temps, pressures)`` maps (B, L) temperatures to the
     (B, L, W) total opacity; where it carries ``layer_parts =
     (ohs_fn, tab)`` the ``"cuda"`` engine hands the kernels the weight
-    rows and layer tables instead, and the opacity slab is never built.
+    rows and layer tables instead, and the opacity slab is never built;
+    the ``"iteration"`` and ``"loop"`` engines build their constants
+    from its ``iteration_hook``.
     ``init_fluxes``: optional (F_up, F_down) pair, (B, L, W) each, to
     warm-start the flux state (e.g. from a result's ``loop_*`` fields).
     """
     B, L = init_temps.shape
     W = consts.lam_cm.shape[0]
     dtype, device = init_temps.dtype, init_temps.device
-    _check_supported(cfg, consts, params)
     engine = _resolve_engine(cfg.engine, device)
+    hook = getattr(kappa_all, "iteration_hook", None)
+    if engine in ("iteration", "loop"):
+        _check_whole_iteration(engine, cfg, consts, params, hook)
+    _check_supported(cfg, consts, params)
     n_hist = 2 * cfg.n_timesteps
 
     # pin the physics scalars to the compute dtype and device
@@ -160,7 +200,22 @@ def solve_rc_batched(init_temps, consts: RTConstants, params: PhysicsParams,
         alpha=torch.as_tensor(params.alpha, dtype=dtype, device=device),
         n_dof=params.n_dof)
 
-    if engine == "cuda":
+    if engine in ("iteration", "loop"):
+        from ..ops.iteration_cuda import (make_iteration_pack,
+                                          rc_iteration_kernel,
+                                          rc_loop_kernel)
+        pack = make_iteration_pack(consts, params, *hook)
+        # the kernels take the scalars as arguments: one host read per
+        # solve, not one per launch
+        scal = PhysicsParams(*(float(x) for x in (
+            params.g, params.m_bar, params.alpha)), n_dof=params.n_dof)
+        # their final emit runs on the sweep kernels on a CUDA device and
+        # on the eager sweeps otherwise
+        sweeps = "cuda" if device.type == "cuda" else "eager"
+    else:
+        sweeps = engine
+
+    if sweeps == "cuda":
         from ..ops.sweep_cuda import (absorb_sweep_cuda, emit_sweep_cuda,
                                       make_sweep_consts)
         sc = make_sweep_consts(consts, params)
@@ -211,6 +266,19 @@ def solve_rc_batched(init_temps, consts: RTConstants, params: PhysicsParams,
         F_down = torch.as_tensor(init_fluxes[1], dtype=dtype,
                                  device=device).contiguous()
     temps = init_temps.contiguous()
+    if engine == "loop":
+        # the whole fixed-horizon loop in one kernel launch
+        (temps, F_up, F_down, hist, maxdT, n_iters,
+         conv) = rc_loop_kernel(temps, F_up, F_down, pack, scal,
+                                cfg.n_timesteps, cfg.n_zero_crossings,
+                                cfg.convergence_dT)
+        Fu_f, Fd_f, T_f, _, dtaus = emit(temps, F_up, F_down,
+                                         with_dtaus=True)
+        return RTResult(
+            flux=Fu_f[:, -1], final_temps=T_f, temp_history=hist,
+            n_history=2 * n_iters, dtaus=dtaus, F_up=Fu_f, F_down=Fd_f,
+            n_iterations=n_iters, converged=conv, max_dT_history=maxdT,
+            loop_temps=temps, loop_F_up=F_up, loop_F_down=F_down)
     cs = _ConvState(
         prev_T=temps,
         prev_sign=torch.zeros((B, L), dtype=dtype, device=device),
@@ -225,7 +293,11 @@ def solve_rc_batched(init_temps, consts: RTConstants, params: PhysicsParams,
     for it in range(cfg.n_timesteps):
         if it and bool(done.all()):
             break
-        if engine == "cuda":
+        if engine == "iteration":
+            # one kernel per RC step, the flux freeze inside it
+            T1, Fu2, Fd2, T2, dT2 = rc_iteration_kernel(
+                temps, F_up, F_down, done, pack, scal)
+        elif engine == "cuda":
             # the kernels apply the freeze to the flux slabs themselves
             Fu1, Fd1, T1, _ = emit(temps, F_up, F_down, done)
             Fu2, Fd2, T2, dT2 = absorb(T1, Fu1, Fd1, done)

@@ -13,6 +13,7 @@ import torch
 import frei_tpu
 from frei_tpu_torch import (Grid, Planet, effective_temperature,
                             load_example_opacity)
+from frei_tpu_torch.opacity.hotpath import build_kappa_model
 from frei_tpu_torch.rt.physics import PhysicsParams
 from frei_tpu_torch.rt.solver import SolverConfig, solve_rc_batched
 
@@ -91,7 +92,7 @@ def test_emission_spectra_matches_columns():
 
 def test_import_loads_no_jax():
     code = ("import sys, frei_tpu_torch, frei_tpu_torch.ops.sweep_cuda, "
-            "frei_tpu_torch.io; "
+            "frei_tpu_torch.ops.iteration_cuda, frei_tpu_torch.io; "
             "bad = [m for m in sys.modules if m.split('.')[0] == 'jax']; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True)
@@ -117,11 +118,46 @@ def test_cuda_engine_on_cpu_tensors_raises(small):
 @pytest.mark.parametrize("case", [
     "pallas-iteration", "pallas-loop", "differentiable", "bins_axis",
     "associative", "population-g", "population-F_toa",
-    "chemistry-equilibrium", "etl"])
+    "chemistry-equilibrium", "etl"]
+    + [f"{engine}-{guard}" for engine in ("iteration", "loop")
+       for guard in ("population-g", "population-F_toa", "bins_axis",
+                     "no-hook")])
 def test_unported_feature_raises(small, case):
     grid, T = small
     consts, params = grid._consts, grid.planet.physics_params()
     cfg = SolverConfig(n_timesteps=1)
+    if case.startswith(("iteration-", "loop-")):
+        # the JAX package's guards of its whole-iteration engines
+        engine, guard = case.split("-", 1)
+        cfg = cfg._replace(engine=engine)
+        kappa = grid._kappa_fn
+        match = {"population-g": "does not support per-column params",
+                 "population-F_toa": "does not support per-column params",
+                 "bins_axis": "does not support a bins-sharded mesh",
+                 "no-hook": "needs a layer-factored kappa model"}[guard]
+        if guard == "population-g":
+            params = PhysicsParams(g=torch.full((2,), params.g),
+                                   m_bar=params.m_bar, alpha=params.alpha)
+        elif guard == "population-F_toa":
+            consts = consts._replace(F_toa=consts.F_toa.expand(2, -1))
+        elif guard == "bins_axis":
+            cfg = cfg._replace(bins_axis="bins")
+        else:       # a single-T-point stack carries no iteration hook
+            s = grid.opacities
+            kappa = build_kappa_model(
+                s._replace(values=s.values[:, :1], temps=s.temps[:1]),
+                grid.chemistry, consts.pressures, consts.sigma_scat)
+        with pytest.raises(ValueError, match=f"engine '{engine}' {match}"):
+            solve_rc_batched(T, consts, params, kappa, cfg)
+        return
+    if case.startswith("pallas"):
+        # the JAX names are refused with the port's counterpart named
+        ours = case.split("-")[1]
+        with pytest.raises(ValueError,
+                           match=f"counterpart is engine '{ours}'"):
+            solve_rc_batched(T, consts, params, grid._kappa_fn,
+                             cfg._replace(engine=case))
+        return
     if case == "chemistry-equilibrium":
         g2 = Grid(Planet.from_hot_jupiter(), n_wl_bins=16, n_layers=5)
         with pytest.raises(NotImplementedError, match="item 10"):
@@ -133,13 +169,10 @@ def test_unported_feature_raises(small, case):
         with pytest.raises(NotImplementedError, match="item 12"):
             g2.load_opacities(path="nowhere/*.ftop")
         return
-    match = {"pallas-iteration": "queue 2", "pallas-loop": "queue 2",
-             "differentiable": "item 11", "bins_axis": "item 14",
+    match = {"differentiable": "item 11", "bins_axis": "item 14",
              "associative": "item 13", "population-g": "item 9",
              "population-F_toa": "item 9"}[case]
-    if case.startswith("pallas"):
-        cfg = cfg._replace(engine=case)
-    elif case == "differentiable":
+    if case == "differentiable":
         cfg = cfg._replace(differentiable=True)
     elif case == "bins_axis":
         cfg = cfg._replace(bins_axis="bins")

@@ -1,4 +1,6 @@
-"""The CUDA sweep kernels against their plain PyTorch twins, on the card.
+"""The CUDA kernels against their plain PyTorch twins, on the card: the
+emit/absorb sweeps (``csrc/sweep.cu``) and the whole-iteration and
+whole-loop kernels (``csrc/iteration.cu``).
 
 Needs an NVIDIA GPU and nvcc; skipped without a GPU.  Imports no JAX,
 so it runs where the JAX package is not installed:
@@ -10,7 +12,11 @@ float64 rtol 1e-10 (the kernel sums the quadratures in another order
 and contracts multiply-adds into FMAs); float32 rtol 1e-4 (the same,
 plus float32 rounding of expm1, rsqrt and the divisions carried along
 the layer recurrence).  An absolute term of 1e-13 (float64) or 1e-7
-(float32) of the largest value covers entries near zero.
+(float32) of the largest value covers entries near zero.  A step of the
+iteration kernels is held piecewise (``_hold_step``): slabs and
+quadratures against the twin's sweeps, with the absorb sweep run at the
+kernel's own T1, and the temperatures against the torch epilogue on the
+kernel's own quadratures (rtol 1e-10 / 1e-5).
 """
 
 import numpy as np
@@ -24,13 +30,17 @@ from frei_tpu_torch.rt.physics import PhysicsParams
 B, L, W = 5, 7, 300     # W > 256: two wavelengths per thread
 
 
-def _inputs(dtype, dev):
-    planet = Planet.from_hot_jupiter()
-    grid = Grid(planet, n_wl_bins=W, n_layers=L, T_ref=2400.0, dtype=dtype,
-                device=dev)
+def _grid(dtype, dev):
+    grid = Grid(Planet.from_hot_jupiter(), n_wl_bins=W, n_layers=L,
+                T_ref=2400.0, dtype=dtype, device=dev)
     grid.load_opacities(opacities=load_example_opacity(
         grid, scale_factor=1.0, dtype=dtype))
-    p = planet.physics_params()
+    return grid
+
+
+def _inputs(dtype, dev, grid=None):
+    grid = grid or _grid(dtype, dev)
+    p = grid.planet.physics_params()
     params = PhysicsParams(
         *(torch.as_tensor(x, dtype=dtype, device=dev)
           for x in (p.g, p.m_bar, p.alpha)), n_dof=p.n_dof)
@@ -98,3 +108,149 @@ def test_kernel_rejects_bad_arguments():
         S.emit_kernel(T.double(), Fu, Fd, kaps["materialized"], sc)
     with pytest.raises(ValueError, match="done"):
         S.emit_kernel(T, Fu, Fd, kaps["materialized"], sc, done.float())
+
+
+# --------------------------------------------------------------------------
+# The whole-iteration kernels (csrc/iteration.cu)
+# --------------------------------------------------------------------------
+
+class _TableChemistry:
+    """Seeded temperature-dependent ln-MMR tables (L, 6, 1) on a log10 T
+    grid narrower than the columns' temperatures (both clip ends)."""
+
+    def layer_ln_mmr_tables(self, pressures_cgs):
+        rng = np.random.RandomState(7)
+        return (np.linspace(3.0, 3.4, 6),
+                np.log(1e-3 * rng.uniform(0.5, 2.0, (L, 6, 1))))
+
+
+def _iteration_inputs(dtype, dev):
+    from frei_tpu_torch.ops import iteration_cuda as IC
+    grid = _grid(dtype, dev)
+    sc, T, Fu, Fd, _, done = _inputs(dtype, dev, grid)
+    k_tgrid, k_tab, _ = grid._kappa_fn.iteration_hook
+    params = grid.planet.physics_params()
+    pack = IC.make_iteration_pack(grid._consts, params, k_tgrid, k_tab,
+                                  _TableChemistry())
+    T = T.clone()
+    T[4] *= 1.5      # hot layers past the kappa T grid: zero-filled
+    return pack, params, T, Fu, Fd, done
+
+
+def _hold_step(got, T, Fu, Fd, done, pack, params, rtol, atol, t_rtol):
+    """One kernel step ``(T1, F_up, F_down, T2, dT2 or None, sums)``
+    against the twin's arithmetic: the emit twin at T, the absorb twin
+    at the kernel's own T1 (float32 updates of optically thin layers are
+    rounding noise in any engine and must not seed the comparison), and
+    the torch epilogue on the kernel's own quadratures."""
+    from frei_tpu_torch.ops import iteration_cuda as IC
+    T1, Fu2, Fd2, T2, dT2, sums = got
+    p, pp, sc = IC._pressures(pack), IC._pinned(params, T), pack.sc
+    Fu1, Fd1, s_e = S.emit_plain(T, Fu, Fd, IC._sweep_kappa(T, pack), sc,
+                                 done)
+    ref = S.absorb_plain(T1, Fu1, Fd1, IC._sweep_kappa(T1, pack), sc, done)
+    T1_epi, _ = S.emit_epilogue(T, sums[:, 0], p, pp)
+    T2_epi, dT2_epi = S.absorb_epilogue(T1, sums[:, 1], p, pp)
+    checks = [("F_up", Fu2, ref[0], rtol, atol),
+              ("F_down", Fd2, ref[1], rtol, atol),
+              ("emit sums", sums[:, 0], s_e, rtol, atol),
+              ("absorb sums", sums[:, 1], ref[2], rtol, atol),
+              ("T1", T1, T1_epi, t_rtol, 0.0), ("T2", T2, T2_epi, t_rtol, 0.0)]
+    if dT2 is not None:
+        checks.append(("dT2", dT2, dT2_epi, t_rtol, t_rtol))
+    for name, a, b, rt, at in checks:
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        np.testing.assert_allclose(a, b, rtol=rt,
+                                   atol=at * float(np.abs(b).max()),
+                                   err_msg=name)
+
+
+_TOLS = {"float64": (1e-10, 1e-13, 1e-10), "float32": (1e-4, 1e-7, 1e-5)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_iteration_kernel_matches_plain_twin(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the iteration kernels run only "
+                    "on the card")
+    from frei_tpu_torch.ops import iteration_cuda as IC
+    pack, params, T, Fu, Fd, done = _iteration_inputs(getattr(torch, dtype),
+                                                      torch.device("cuda"))
+    n0 = IC.rc_iteration_kernel.launches
+    got = IC.rc_iteration_kernel(T, Fu, Fd, done, pack, params,
+                                 with_sums=True)
+    torch.cuda.synchronize()
+    assert IC.rc_iteration_kernel.launches == n0 + 1
+    _hold_step(got, T, Fu, Fd, done, pack, params, *_TOLS[dtype])
+    assert torch.equal(got[1][done], Fu[done])
+    assert torch.equal(got[2][done], Fd[done])
+    again = IC.rc_iteration_kernel(T, Fu, Fd, done, pack, params,
+                                   with_sums=True)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    # without the diagnostic: the same step
+    plain = IC.rc_iteration_kernel(T, Fu, Fd, done, pack, params)
+    assert all(torch.equal(x, y) for x, y in zip(got, plain))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_loop_kernel_matches_plain_twin(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the iteration kernels run only "
+                    "on the card")
+    from frei_tpu_torch.ops import iteration_cuda as IC
+    dt = getattr(torch, dtype)
+    pack, params, T, Fu, Fd, _ = _iteration_inputs(dt, torch.device("cuda"))
+    # one iteration: a step held as the iteration kernel's
+    n0 = IC.rc_loop_kernel.launches
+    tout, fu, fd, hist, maxdt, n_it, conv, sums = IC.rc_loop_kernel(
+        T, Fu, Fd, pack, params, 1, 10 ** 6, 0.0, with_sums=True)
+    torch.cuda.synchronize()
+    assert IC.rc_loop_kernel.launches == n0 + 1
+    assert torch.equal(tout, hist[:, 1]) and (n_it == 1).all()
+    _hold_step((hist[:, 0], fu, fd, tout, None, sums), T, Fu, Fd, None,
+               pack, params, *_TOLS[dtype])
+    if dtype == "float32":
+        return
+    # float64: three iterations from zero fluxes, a threshold between
+    # two columns' second-iteration max|dT|, so some columns freeze early
+    Fz = torch.zeros_like(Fu)
+    probe = IC.rc_loop_plain(T, Fz, Fz, pack, params, 3, 10 ** 6, 0.0)
+    v = torch.sort(probe[4][:, 1]).values
+    cdT = float(0.5 * (v[1] + v[2]))
+    got = IC.rc_loop_kernel(T, Fz, Fz, pack, params, 3, 2, cdT)
+    ref = IC.rc_loop_plain(T, Fz, Fz, pack, params, 3, 2, cdT)
+    assert ref[5].min() < 3
+    assert torch.equal(got[5], ref[5]) and torch.equal(got[6], ref[6])
+    assert torch.equal(got[3] != 0, ref[3] != 0)
+    for name, a, b in zip(["temps", "F_up", "F_down", "hist", "max_dT"],
+                          got, ref):
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        np.testing.assert_allclose(a, b, rtol=1e-10,
+                                   atol=1e-13 * float(np.abs(b).max()),
+                                   err_msg=name)
+    again = IC.rc_loop_kernel(T, Fz, Fz, pack, params, 3, 2, cdT)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_iteration_kernels_reject_bad_arguments():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the iteration kernels run only "
+                    "on the card")
+    from frei_tpu_torch.ops import iteration_cuda as IC
+    pack, params, T, Fu, Fd, done = _iteration_inputs(torch.float32,
+                                                      torch.device("cuda"))
+    with pytest.raises(ValueError, match="contiguous"):
+        IC.rc_iteration_kernel(
+            T, Fu.transpose(1, 2).contiguous().transpose(1, 2), Fd, done,
+            pack, params)
+    with pytest.raises(TypeError):
+        IC.rc_loop_kernel(T.double(), Fu, Fd, pack, params, 1, 2, 3.0)
+    with pytest.raises(ValueError, match="done"):
+        IC.rc_iteration_kernel(T, Fu, Fd, done.float(), pack, params)
+    with pytest.raises(ValueError, match="scalar physics"):
+        IC.rc_loop_kernel(T, Fu, Fd, pack,
+                          params._replace(g=torch.full((5,), params.g)),
+                          1, 2, 3.0)
