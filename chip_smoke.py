@@ -7,9 +7,10 @@ Phases, one report line each, any failure raising (non-zero exit):
 
 1. device: a CUDA device must be present (no CPU fallback); prints
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``;
-2. build: compiles ``frei_tpu_torch/csrc/sweep.cu`` and
-   ``csrc/iteration.cu`` with nvcc, both at once, and prints the build
-   time and ptxas's register report;
+2. build: compiles ``frei_tpu_torch/csrc/sweep.cu``, ``csrc/iteration.cu``,
+   ``csrc/rebin.cu`` and ``csrc/kappa.cu`` with nvcc and the host rebin
+   library ``csrc/rebin_host.cc`` with g++, all at once, and prints the
+   build time and ptxas's register report;
 3. kernel parity: each sweep kernel against its plain PyTorch twin on
    the card, fused and materialized opacity, some columns frozen:
    float64 at 64 columns (rtol 1e-10), float32 at 8192 columns (rtol
@@ -24,6 +25,14 @@ Phases, one report line each, any failure raising (non-zero exit):
    early; float32 at 8192 columns for 1 iteration); see
    :func:`hold_step` for how a step is held; each kernel's time against
    its twin's at the headline shape;
+3c. the opacity plane's kernels against their twins: the rebin kernel on
+   a device-resident 64-row x 2e6-sample float32 slab into the run's 500
+   bins, against the float64 twin (rtol 1e-6 plus 1e-6 of the largest
+   value) and the native host engine, plus ragged sizes; the kappa
+   lookup kernel in float64 at 64 columns (rtol 1e-10) and in float32
+   at 8192 columns x 30 layers x 500 bins (rtol 1e-5 plus 1e-7 of the
+   largest value), some points outside the hull; each kernel's time
+   against its twin's;
 4. goldens: ``Grid(..., device="cuda")`` + the synthetic fixture +
    ``emission_spectrum(n_timesteps=1)`` reproduce the published peak
    wavelength, peak flux and effective temperature through the kernels,
@@ -31,6 +40,17 @@ Phases, one report line each, any failure raising (non-zero exit):
    engine;
 4b. the same goldens through ``Grid.emission_spectra`` on the
    ``"loop"`` and ``"iteration"`` engines;
+4c. the opacity plane end to end: two synthetic line-list stores
+   (``1H2-16O``, ``12C-16O``; 8 T x 8 P x 2e6 samples, 512 MB each) under
+   a fresh ``FREI_TPU_CACHE``; ``Grid(device="cuda").load_opacities(
+   path=..., engine=...)`` on the ``"native"`` and ``"cuda"`` engines in
+   turns, timed, the tables agreeing to rtol 1e-6; a float64 8192-column
+   solve on the ``"loop"`` engine on that stack (finite flux; float32
+   solves of this optically thin stack are counted, see
+   :func:`phase_etl`); ``kappa_from_stack`` through the kappa kernel at
+   the final temperatures against the layer tables (rtol 1e-10).
+   Launch counts are set to 0 before the path and read after it; the
+   stores live in ``chip_smoke_data/`` in the checkout, removed after;
 5. headline: the batched solve of 8192 columns x 500 bins x 30 layers,
    20 fixed iterations, float32, on the ``"loop"``, ``"iteration"``,
    ``"cuda"`` and ``"eager"`` engines: columns x bins per second, peak
@@ -44,7 +64,9 @@ is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -56,6 +78,14 @@ import torch
 
 N_COLUMNS, N_BINS, N_LAYERS, N_ITERS = 8192, 500, 30, 20
 PARITY64_COLUMNS = 64
+# the ETL's row chunk and a line-list store's wavelength axis (the
+# H2O-sized store of docs/opacities.md has 2e6 samples)
+ETL_ROWS, ETL_SAMPLES = 64, 2_000_000
+# phase 4c's stores: 8 T x 8 P rows each, cut from the reference volume's
+# 28 x 23 to fit the run's time and disk
+ETL_SPECIES = ("1H2-16O", "12C-16O")
+ETL_TEMPS = tuple(np.linspace(500.0, 4000.0, 8))
+ETL_PRESS_BAR = tuple(np.logspace(-6.0, 2.5, 8))
 
 
 def log(msg):
@@ -93,11 +123,11 @@ def ptxas_summary(report):
     out, kern, spill = [], None, ""
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '.*?"
-                      r"(emit|absorb|iteration|loop)_kernelI([fd])Li(\d+)E",
-                      line)
+                      r"(emit|absorb|iteration|loop|rebin|kappa)_kernelI"
+                      r"([fd])(?:Li(\d+)E)?", line)
         if m:
-            kern = (f"{m[1]}<{'float' if m[2] == 'f' else 'double'}, "
-                    f"NPT={m[3]}>")
+            kern = (f"{m[1]}<{'float' if m[2] == 'f' else 'double'}"
+                    + (f", NPT={m[3]}>" if m[3] else ">"))
         elif "spill" in line:
             spill = line.strip()
         elif "registers" in line and kern:
@@ -565,13 +595,264 @@ def phase_goldens():
     assert torch.equal(rk.n_iterations, re.n_iterations)
 
 
+def opacity_inputs(dtype, n, seed=5):
+    """Kappa lookup inputs at the main path's shapes: a seeded
+    two-species stack on the run grid's (T, P) points with distinct T and
+    P dependence, the columns of :func:`columns` x U(0.9, 1.1) with every
+    16th column at 1.6x and every 16th (offset 8) at 0.5x (outside the T
+    hull), the layer pressures x U(0.5, 2) per point (outside the P hull
+    at both ends), seeded mixing ratios and the grid's sigma."""
+    from frei_tpu_torch.opacity.tables import make_opacity_stack
+    grid = make_grid(dtype)
+    g = grid.rt_grid
+    rng = np.random.RandomState(seed)
+    shape = (N_LAYERS, N_LAYERS, N_BINS)
+    tdep = np.linspace(0.5, 1.5, N_LAYERS)[:, None, None]
+    pdep = np.linspace(0.8, 1.2, N_LAYERS)[None, :, None]
+    tables = {iso: (rng.uniform(0.1, 1.0, shape) * tdep * pdep * (k + 1),
+                    g.init_temperatures, g.pressures_bar)
+              for k, iso in enumerate(ETL_SPECIES)}
+    stack = make_opacity_stack(tables, dtype=dtype, device=grid.device)
+    T = columns(grid, n, seed=seed) * torch.as_tensor(
+        rng.uniform(0.9, 1.1, (n, 1)), dtype=dtype, device=grid.device)
+    T[::16] *= 1.6
+    T[8::16] *= 0.5
+    P = grid._consts.pressures * torch.as_tensor(
+        rng.uniform(0.5, 2.0, (n, N_LAYERS)), dtype=dtype,
+        device=grid.device)
+    mmr = torch.as_tensor(rng.uniform(1e-5, 1e-3, (2, n, N_LAYERS)),
+                          dtype=dtype, device=grid.device)
+    return stack, mmr, T.contiguous(), P.contiguous(), grid._consts.sigma_scat
+
+
+def phase_opacity_parity(edges_um):
+    """The rebin and kappa kernels against their twins; returns
+    per-kernel records with their times and their twins' at the main
+    path's shapes."""
+    from frei_tpu_torch.native import grouped_trapezoid_native
+    from frei_tpu_torch.ops import kappa_cuda as KC
+    from frei_tpu_torch.ops import rebin_cuda as RC
+    dev = torch.device("cuda")
+    rec = {"rebin": {"max_abs_err": 0.0, "err_over_tol": 0.0},
+           "kappa": {"max_abs_err": 0.0, "err_over_tol": 0.0}}
+
+    def hold(kernel, label, got, ref, rtol, atol):
+        q = check_close(label, got, ref, rtol, atol)
+        r, ab = rel_err(got, ref)
+        rec[kernel]["max_abs_err"] = max(rec[kernel]["max_abs_err"], ab)
+        rec[kernel]["err_over_tol"] = max(rec[kernel]["err_over_tol"], q)
+        log(f"[parity] {label}: max rel {r:.3e} max abs {ab:.3e} max "
+            f"err/bound {q:.3f}")
+
+    # rebin, ragged: 3 rows x 777 samples, edges past both ends, an
+    # empty and a one-sample bin; float64 and float32 rows
+    rng = np.random.RandomState(9)
+    x = np.sort(rng.uniform(0.0, 1.0, 777))
+    edges = np.sort(np.concatenate([np.linspace(-0.01, 1.01, 12),
+                                    [x[100], x[100] - 1e-12,
+                                     x[300] + (x[301] - x[300]) / 3,
+                                     x[300] + 2 * (x[301] - x[300]) / 3]]))
+    plan = RC.make_rebin_plan(x, edges, device=dev)
+    counts = (plan.stop - plan.start).cpu()
+    assert (counts == 0).any() and (counts == 1).any()
+    vals = torch.as_tensor(rng.uniform(0, 1, (3, 777)), device=dev)
+    for dtype, rtol in ((torch.float64, 1e-12), (torch.float32, 1e-6)):
+        rows = vals.to(dtype)
+        got = RC.rebin_kernel(rows, plan)
+        torch.cuda.synchronize()
+        ref = RC.rebin_plain(rows.double(), plan)
+        hold("rebin", f"rebin ragged R=3 N=777 {dtype}", got.double(), ref,
+             rtol, 0.0)
+        assert (got[:, counts <= 1] == 0).all()
+
+    # rebin at the ETL's chunk: 64 rows x 2e6 float32 samples, uniform in
+    # wavelength as a line-list store, into the run grid's bins
+    x = np.linspace(0.4, 11.0, ETL_SAMPLES)
+    plan = RC.make_rebin_plan(x, edges_um, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    rows = torch.randn((ETL_ROWS, ETL_SAMPLES), generator=gen,
+                       device=dev).exp_()
+    got = RC.rebin_kernel(rows, plan)
+    torch.cuda.synchronize()
+    assert torch.equal(got, RC.rebin_kernel(rows, plan)), \
+        "repeated rebin launches differ"
+    ref = RC.rebin_plain(rows.double(), plan)
+    scale = float(ref.abs().max())
+    hold("rebin", f"rebin R={ETL_ROWS} N={ETL_SAMPLES} float32 vs the "
+         f"float64 twin", got.double(), ref, 1e-6, 1e-6 * scale)
+    del ref
+    native = torch.as_tensor(grouped_trapezoid_native(
+        rows.cpu().numpy(), x, edges_um), device=dev)
+    hold("rebin", f"rebin R={ETL_ROWS} N={ETL_SAMPLES} float32 vs the "
+         f"native host engine", got, native, 1e-6, 1e-6 * scale)
+    rec["rebin"]["ms"] = time_ms(lambda: RC.rebin_kernel(rows, plan), 20)
+    rec["rebin"]["plain_ms"] = time_ms(lambda: RC.rebin_plain(rows, plan),
+                                       3)
+    log(f"[timing] rebin kernel {rec['rebin']['ms']:.4f} ms, plain twin "
+        f"{rec['rebin']['plain_ms']:.4f} ms ({ETL_ROWS} x {ETL_SAMPLES} "
+        f"float32 samples -> {plan.n_bins} bins, device-resident)")
+    del rows
+
+    # kappa: float64 at 64 columns, float32 at the headline's width
+    for dtype, n, rtol, atol_frac in (
+            (torch.float64, PARITY64_COLUMNS, 1e-10, 0.0),
+            (torch.float32, N_COLUMNS, 1e-5, 1e-7)):
+        stack, mmr, T, P, sig = opacity_inputs(dtype, n)
+        got, _ = KC.kappa_kernel(stack, mmr, T, P, sig)
+        torch.cuda.synchronize()
+        assert torch.equal(got, KC.kappa_kernel(stack, mmr, T, P, sig)[0]), \
+            "repeated kappa launches differ"
+        ref, _ = KC.kappa_plain(stack, mmr, T, P, sig)
+        out = (ref == sig).all(-1)
+        log(f"[parity] kappa {dtype} B={n}: {int(out.sum())} of "
+            f"{out.numel()} lookup points outside the (T, P) hull")
+        assert out.any() and not out.all()
+        assert torch.equal(got[out], ref[out])
+        hold("kappa", f"kappa {str(dtype):13s} B={n:5d} L={N_LAYERS} "
+             f"W={N_BINS}", got, ref, rtol, atol_frac * float(ref.abs().max()))
+        if dtype == torch.float32:
+            del got, ref
+            rec["kappa"]["ms"] = time_ms(
+                lambda: KC.kappa_kernel(stack, mmr, T, P, sig), 20)
+            rec["kappa"]["plain_ms"] = time_ms(
+                lambda: KC.kappa_plain(stack, mmr, T, P, sig), 3)
+            log(f"[timing] kappa kernel {rec['kappa']['ms']:.4f} ms, plain "
+                f"twin {rec['kappa']['plain_ms']:.4f} ms ({n} x {N_LAYERS} "
+                f"points x {N_BINS} bins, 2 species, float32)")
+    return rec
+
+
+def phase_etl(root):
+    """The opacity plane end to end under a fresh ``FREI_TPU_CACHE`` in
+    ``root``: stores -> ``Grid.load_opacities`` on the native and cuda
+    engines (in turns, each with its own binned cache, so every load
+    rebins) -> an 8192-column ``"loop"`` solve -> ``kappa_from_stack``
+    through the kappa kernel.  Returns the walls and the path's launch
+    counts."""
+    from frei_tpu_torch import Grid, Planet
+    from frei_tpu_torch.opacity.etl import make_synthetic_store
+    from frei_tpu_torch.opacity.tables import (kappa_from_layer_tables,
+                                               kappa_from_stack,
+                                               make_layer_tables)
+    wrappers = kernel_wrappers()
+    stores = root / "stores"
+    t0 = time.perf_counter()
+    for k, iso in enumerate(ETL_SPECIES):
+        make_synthetic_store(stores / f"{iso}__synthetic.ftop",
+                             isotopologue=iso, n_hr=ETL_SAMPLES,
+                             temps=ETL_TEMPS, press_bar=ETL_PRESS_BAR,
+                             seed=7 + k)
+    gb = 4 * len(ETL_SPECIES) * len(ETL_TEMPS) * len(ETL_PRESS_BAR) \
+        * ETL_SAMPLES / 1e9
+    log(f"[etl] wrote {len(ETL_SPECIES)} stores ({gb:.3f} GB: "
+        f"{len(ETL_TEMPS)} T x {len(ETL_PRESS_BAR)} P x {ETL_SAMPLES} "
+        f"samples each) in {time.perf_counter() - t0:.1f} s")
+
+    walls = {"native": [], "cuda": []}
+    grids = {}
+    for turn, engine in enumerate(("native", "cuda", "cuda", "native")):
+        os.environ["FREI_TPU_CACHE"] = str(root / f"cache{turn}")
+        grid = Grid(Planet.from_hot_jupiter(), n_wl_bins=N_BINS,
+                    n_layers=N_LAYERS, T_ref=2400.0, dtype=torch.float32,
+                    device="cuda")
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stack = grid.load_opacities(path=stores, engine=engine)
+        torch.cuda.synchronize()
+        walls[engine].append(time.perf_counter() - t0)
+        n = wrappers["resort_rebin"].launches
+        log(f"[etl] engine={engine:6s} load_opacities of "
+            f"{len(ETL_SPECIES)} stores: {walls[engine][-1]:.4f} s, rebin "
+            f"kernel launches {n}")
+        assert stack.values.shape == (len(ETL_SPECIES), N_LAYERS, N_LAYERS,
+                                      N_BINS)
+        assert stack.values.is_cuda and torch.isfinite(stack.values).all()
+        assert (n > 0) == (engine == "cuda"), (engine, n)
+        grids.setdefault(engine, grid)
+    cuda, native = grids["cuda"].opacities, grids["native"].opacities
+    q = check_close("etl cuda vs native tables", cuda.values, native.values,
+                    1e-6, 0.0)
+    log(f"[etl] cuda vs native tables: max rel "
+        f"{rel_err(cuda.values, native.values)[0]:.3e}, max err/bound "
+        f"{q:.3f}")
+
+    # float32 solves on this stack: its binned opacities are tiny
+    # (groupies scaling: integral x bin width x 1e-3, <= 7.4e-6 cm^2/g),
+    # so the top layers are optically thin and their float32 updates are
+    # rounding noise (phase 3) that drives some columns negative within
+    # 20 iterations, on every engine, the eager one included.  Counted,
+    # not asserted.
+    T0 = columns(grids["cuda"], N_COLUMNS)
+    for engine in ("loop", "eager"):
+        spec, *_ = grids["cuda"].emission_spectra(
+            T0, n_timesteps=N_ITERS, n_zero_crossings=10 ** 6,
+            convergence_dT=0.0, engine=engine)
+        bad = int((~np.isfinite(spec.flux_cgs)).any(1).sum())
+        log(f"[etl] float32 {N_ITERS}-iteration solve on the binned stack, "
+            f"engine={engine}: {bad} of {N_COLUMNS} columns non-finite "
+            f"(optically thin top layers; not asserted)")
+
+    # the path, counted from 0: the ETL load through the rebin kernel, a
+    # float64 solve of 8192 columns on the "loop" engine, and the batched
+    # lookup through the kappa kernel at the final temperatures
+    grid = Grid(Planet.from_hot_jupiter(), n_wl_bins=N_BINS,
+                n_layers=N_LAYERS, T_ref=2400.0, dtype=torch.float64,
+                device="cuda")
+    os.environ["FREI_TPU_CACHE"] = str(root / "cache-path")
+    for w in wrappers.values():
+        w.launches = 0
+    grid.load_opacities(path=stores, engine="cuda")
+    T0 = columns(grid, N_COLUMNS)
+    t0 = time.perf_counter()
+    spec, temps, _, _ = grid.emission_spectra(
+        T0, n_timesteps=N_ITERS, n_zero_crossings=10 ** 6,
+        convergence_dT=0.0, engine="loop")
+    wall = time.perf_counter() - t0
+    assert spec.flux_cgs.shape == (N_COLUMNS, N_BINS)
+    assert np.all(np.isfinite(spec.flux_cgs)), "non-finite flux"
+    T = grid.last_result.final_temps
+    p = grid._consts.pressures
+    sig = grid._consts.sigma_scat
+    mmr = grid.chemistry.mmr(T, p)
+    k_kernel, _ = kappa_from_stack(grid.opacities, mmr, T,
+                                   p.expand_as(T), sig)
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    log(f"[etl] float64 {N_COLUMNS}-column {N_ITERS}-iteration loop solve "
+        f"on the binned stack: {wall:.4f} s, flux finite, peak "
+        f"{float(spec.flux_cgs.max()):.4e}, final T in "
+        f"[{float(T.min()):.1f}, {float(T.max()):.1f}] K; launches over "
+        f"the path {json.dumps(launches)}")
+    for k in ("resort_rebin", "kappa_lookup", "rc_loop"):
+        assert launches[k] > 0, f"the ETL path bypassed {k}: {launches}"
+    lt = make_layer_tables(grid.opacities, p)
+    k_layer, _ = kappa_from_layer_tables(lt, mmr, T, sig)
+    t = grid.opacities.temps
+    eps = 8 * torch.finfo(t.dtype).eps
+    inside = (T >= t[0] - eps * t[0]) & (T <= t[-1] + eps * t[-1])
+    assert torch.equal(k_kernel[~inside], sig.expand_as(k_kernel)[~inside])
+    q_k = check_close("kappa kernel vs layer tables (inside the hull)",
+                      k_kernel[inside], k_layer[inside], 1e-10, 0.0)
+    log(f"[etl] kappa_from_stack (kernel) vs kappa_from_layer_tables at "
+        f"the final temperatures: {int(inside.sum())} of {inside.numel()} "
+        f"points inside the T hull, max rel "
+        f"{rel_err(k_kernel[inside], k_layer[inside])[0]:.3e}, max "
+        f"err/bound {q_k:.3f}; outside it sigma exactly")
+    return {"walls": walls, "launches": launches, "solve_wall": wall}
+
 def kernel_wrappers():
     """Each kernel's wrapper, by the kernel's name in the JSON record."""
     from frei_tpu_torch.ops import iteration_cuda as IC
+    from frei_tpu_torch.ops import kappa_cuda as KC
+    from frei_tpu_torch.ops import rebin_cuda as RC
     from frei_tpu_torch.ops import sweep_cuda as S
     return {"emit_sweep": S.emit_kernel, "absorb_sweep": S.absorb_kernel,
             "rc_iteration": IC.rc_iteration_kernel,
-            "rc_loop": IC.rc_loop_kernel}
+            "rc_loop": IC.rc_loop_kernel,
+            "kappa_lookup": KC.kappa_kernel,
+            "resort_rebin": RC.rebin_kernel}
 
 
 def phase_headline():
@@ -637,8 +918,12 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
                  "run needs an NVIDIA GPU")
-    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    root = Path(__file__).resolve().parent
+    sys.path.insert(0, str(root))
+    from frei_tpu_torch import native
     from frei_tpu_torch.ops import iteration_cuda as IC
+    from frei_tpu_torch.ops import kappa_cuda as KC
+    from frei_tpu_torch.ops import rebin_cuda as RC
     from frei_tpu_torch.ops import sweep_cuda as S
 
     # phase 1: device
@@ -654,12 +939,15 @@ def main():
         f"{torch.version.cuda}; TF32 off for matmul and cuDNN")
     log(smi)
 
-    # phase 2: build, one nvcc per source, all started together
+    # phase 2: build, one compiler per source, all started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        reports = list(pool.map(lambda m: m.build(), (S, IC)))
-    log(f"[build] csrc/sweep.cu -> libfrei_sweep.so and csrc/iteration.cu "
-        f"-> libfrei_iteration.so in {time.perf_counter() - t0:.1f} s"
+    with ThreadPoolExecutor(5) as pool:
+        host = pool.submit(native.build_native)
+        reports = list(pool.map(lambda m: m.build(), (S, IC, RC, KC)))
+        host.result()
+    log(f"[build] csrc/sweep.cu, iteration.cu, rebin.cu and kappa.cu (nvcc) "
+        f"and rebin_host.cc (g++) -> csrc/build/ in "
+        f"{time.perf_counter() - t0:.1f} s"
         + ("" if all(reports) else " (some already built)"))
     for line in ptxas_summary("".join(reports)):
         log(f"[build] {line}")
@@ -672,12 +960,24 @@ def main():
 
     # phase 3b: the whole-iteration kernels against their twins
     whole = phase_iteration_parity()
+    # phase 3c: the opacity plane's kernels against their twins
+    opac = phase_opacity_parity(make_grid(torch.float32).wl_bins)
 
     # phase 4: goldens through Grid(device="cuda")
     phase_goldens()
     # phase 4b: the same goldens on the whole-iteration engines
     for engine in ("loop", "iteration"):
         phase_goldens_whole(engine)
+    # phase 4c: the opacity plane end to end, on stores in the checkout
+    data = root / "chip_smoke_data"
+    shutil.rmtree(data, ignore_errors=True)
+    try:
+        etl = phase_etl(data)
+    finally:
+        shutil.rmtree(data, ignore_errors=True)
+    log(f"[etl] on {smi}: load_opacities walls native "
+        + ", ".join(f"{w:.4f}" for w in etl["walls"]["native"]) + " s, cuda "
+        + ", ".join(f"{w:.4f}" for w in etl["walls"]["cuda"]) + " s")
 
     # phase 5: the headline solve
     head = phase_headline()
@@ -705,6 +1005,19 @@ def main():
             "source": "frei_tpu_torch/csrc/iteration.cu",
             "replaces": f"frei_tpu/ops/iteration_pallas.py:{line}",
             "launches": head[k]["launches"][f"rc_{k}"],
+            "max_abs_err": r["max_abs_err"],
+            "err_over_tol": r["err_over_tol"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"]})
+    for k, name_, src, replaces in (
+            ("kappa", "kappa_lookup", "kappa.cu",
+             "frei_tpu/ops/kappa_pallas.py:48"),
+            ("rebin", "resort_rebin", "rebin.cu",
+             "frei_tpu/ops/rebin_pallas.py:47")):
+        r = opac[k]
+        kernels.append({
+            "name": name_, "route": "cuda",
+            "source": f"frei_tpu_torch/csrc/{src}", "replaces": replaces,
+            "launches": etl["launches"][name_],
             "max_abs_err": r["max_abs_err"],
             "err_over_tol": r["err_over_tol"],
             "ms": r["ms"], "plain_ms": r["plain_ms"]})

@@ -1,10 +1,11 @@
 """frei_tpu_torch: exoplanet radiative transfer in PyTorch and CUDA.
 
 The PyTorch port of ``frei_tpu``, for one NVIDIA H100: the same
-grids, opacity tables, mock chemistry and two-stream
-radiative-convective solver, with the emit/absorb sweeps of the batched
-solve as kernels written by hand in CUDA (``csrc/sweep.cu``).  It
-imports no JAX; ``frei_tpu`` stays the reference it is tested against.
+grids, opacity plane (on-disk stores, the streamed rebin, the binned
+cache, the batched kappa lookup), mock chemistry and two-stream
+radiative-convective solver, with every Pallas kernel of ``frei_tpu``
+written by hand in CUDA (``csrc/*.cu``).  It imports no JAX;
+``frei_tpu`` stays the reference it is tested against.
 
 Quickstart::
 
@@ -15,14 +16,21 @@ Quickstart::
                 device="cpu")        # or device="cuda"
     grid.load_opacities(opacities=load_example_opacity(grid))
     spec, temps, temp_hist, dtaus = grid.emission_spectrum(n_timesteps=1)
+
+or, from on-disk opacity stores (``opacity.etl``)::
+
+    grid.load_opacities(path="stores/", engine="cuda")   # device="cuda"
 """
 
 from .api import (Grid, Planet, Spectrum, effective_temperature,
                   effective_temperature_milne, effective_temperature_planck)
 from .grids import (RTGrid, make_rt_grid, pressure_grid, temperature_grid,
                     wavelength_grid)
+from .opacity.etl import (binned_opacity_stack, make_synthetic_store,
+                          opacity_dir_to_store)
 from .opacity.tables import (OpacityStack, kappa_from_stack,
-                             load_example_opacity, make_opacity_stack)
+                             load_example_opacity, make_opacity_stack,
+                             set_interp_mode)
 from .rt.physics import PhysicsParams
 from .rt.solver import (RTConstants, RTResult, SolverConfig, solve_rc,
                         solve_rc_batched)
@@ -36,7 +44,8 @@ __all__ = [
     "wavelength_grid", "pressure_grid", "temperature_grid",
     "RTGrid", "make_rt_grid",
     "OpacityStack", "make_opacity_stack", "load_example_opacity",
-    "kappa_from_stack",
+    "kappa_from_stack", "set_interp_mode",
+    "binned_opacity_stack", "make_synthetic_store", "opacity_dir_to_store",
     "PhysicsParams", "SolverConfig", "RTConstants", "RTResult",
     "solve_rc", "solve_rc_batched", "emit_sweep", "absorb_sweep",
     "f_toa", "b_star",

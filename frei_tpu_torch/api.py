@@ -20,6 +20,7 @@ from . import units
 from .chemistry.mocks import MockChemistry
 from .diag.telemetry import SolveMetrics
 from .grids import RTGrid, make_rt_grid
+from .opacity.etl import binned_opacity_stack
 from .opacity.hotpath import build_kappa_model
 from .opacity.rayleigh import rayleigh_total
 from .opacity.tables import OpacityStack, make_opacity_stack
@@ -196,25 +197,38 @@ class Grid:
 
         ``opacities`` is an :class:`OpacityStack` or a dict of
         ``{isotopologue: (values, temps_K, press_bar)}`` arrays; it is
-        moved to the grid's dtype and device.  ``chemistry`` is None or
-        "mock" for the constant-VMR mock, or any object with an
-        ``mmr(temps, pressures_cgs)`` method.  Binning tables from an
-        on-disk store (``opacities=None``) and the equilibrium
+        moved to the grid's dtype and device.  When it is None (and no
+        stack is attached yet) or ``force_reload`` is set, the tables are
+        binned from the on-disk stores under ``path`` (default the user
+        store directory), filtered by ``species``
+        (``opacity.etl.binned_opacity_stack``).
+
+        ``groupies`` selects the rebin semantics, as in the reference
+        (`core.py:199` -> `opacity.py:66-170`): True for the grouped
+        trapezoid-integral path (the semantics the published goldens are
+        calibrated against), False for the exact per-bin average path
+        (the reference's own default).  ``engine`` selects the rebin
+        engine: "auto" (the threaded C++ host engine, else "eager"),
+        "eager", "native" or "cuda" (the CUDA kernel, on the grid's
+        device); see ``opacity.etl``.
+
+        ``chemistry`` is None or "mock" for the constant-VMR mock, or
+        any object with an ``mmr(temps, pressures_cgs)`` method; None on
+        a grid that already has a model keeps it (a reload must not
+        downgrade the chemistry), "mock" resets it.  The equilibrium
         chemistry models are not ported yet.
         """
-        del species, groupies, engine    # arguments of the ETL path
-        if opacities is None:
-            if self.opacities is None or force_reload:
-                raise NotImplementedError(
-                    "binning opacities from an on-disk store "
-                    f"(opacities=None, path={path!r}) is ROADMAP queue 1 "
-                    "item 12; pass opacities=")
-        elif isinstance(opacities, OpacityStack):
-            self.opacities = opacities.to(dtype=self.dtype,
-                                          device=self.device)
-        else:
-            self.opacities = make_opacity_stack(
-                opacities, dtype=self.dtype, device=self.device)
+        if (self.opacities is None and opacities is None) or force_reload:
+            self.opacities = binned_opacity_stack(
+                self.rt_grid, species=species, path=path, dtype=self.dtype,
+                device=self.device, groupies=groupies, engine=engine)
+        elif opacities is not None:
+            if isinstance(opacities, OpacityStack):
+                self.opacities = opacities.to(dtype=self.dtype,
+                                              device=self.device)
+            else:
+                self.opacities = make_opacity_stack(
+                    opacities, dtype=self.dtype, device=self.device)
         if chemistry is not None or self.chemistry is None:
             self.chemistry = chemistry
         self._build_solver_inputs()

@@ -1,2 +1,4 @@
+from .cache import (binned_cache_dir, cache_root, grid_fingerprint,
+                    load_binned_cache, opacity_store_dir, save_binned_cache)
 from .convert import (to_layer_tables, to_opacity_stack, to_physics_params,
                       to_resume_state, to_rt_constants)

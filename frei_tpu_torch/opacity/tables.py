@@ -2,14 +2,15 @@
 
 PyTorch counterpart of ``frei_tpu.opacity.tables``: all binned tables
 on one (species, T, P, wavelength) tensor, the 4-point gather bilinear
-lookup, and the layer-factored form the solver uses (the pressure axis
-interpolated once onto the fixed layer grid, leaving a per-sweep 1-D
-temperature interpolation expressed as weight rows).
+lookup, the batched lookup kernel behind :func:`kappa_from_stack`
+(``ops/kappa_cuda.py``), and the layer-factored form the solver uses
+(the pressure axis interpolated once onto the fixed layer grid, leaving
+a per-sweep 1-D temperature interpolation expressed as weight rows).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -18,9 +19,33 @@ from .. import constants as const
 from ..chemistry.names import iso_to_mass_g
 
 __all__ = ["OpacityStack", "LayerKappaTables", "make_opacity_stack",
-           "interp_tp", "kappa_from_stack", "make_layer_tables",
-           "layer_interp_weights", "kappa_from_layer_tables",
-           "load_example_opacity"]
+           "interp_tp", "set_interp_mode", "kappa_from_stack",
+           "make_layer_tables", "layer_interp_weights",
+           "kappa_from_layer_tables", "load_example_opacity"]
+
+#: None = the kappa kernel for multi-T stacks on a CUDA device, else the
+#: gather; "gather" forces the gather; "cuda" demands the kernel.
+_INTERP_MODE: Optional[str] = None
+
+#: the JAX package's TPU formulations, by their counterpart here
+_TPU_MODES = {"onehot": "gather", "pallas": "cuda"}
+
+
+def set_interp_mode(mode: Optional[str]) -> None:
+    """Select the engine of :func:`kappa_from_stack`: None (the CUDA
+    kernel for a multi-T stack on a CUDA device, the gather otherwise),
+    ``"gather"`` (always the plain gather) or ``"cuda"`` (always the
+    kernel; a stack on the CPU raises).  The JAX package's ``"onehot"``
+    and ``"pallas"`` are TPU formulations and are refused."""
+    global _INTERP_MODE
+    if mode in _TPU_MODES:
+        raise ValueError(
+            f"interp mode {mode!r} is a TPU formulation of the JAX "
+            f"package; its counterpart here is {_TPU_MODES[mode]!r}")
+    if mode not in (None, "gather", "cuda"):
+        raise ValueError(f"unknown interp mode {mode!r} (expected None, "
+                         "'gather' or 'cuda')")
+    _INTERP_MODE = mode
 
 
 class OpacityStack(NamedTuple):
@@ -146,7 +171,27 @@ def kappa_from_stack(stack: OpacityStack, mmr, temperature, pressure_cgs,
                      sigma_scat):
     """Total and scattering opacity [cm^2 / g] (`frei/opacity.py:203-269`):
     the MMR-weighted species sum of :func:`interp_tp` plus the Rayleigh
-    term.  Returns ``(k_total, sigma_scat)``."""
+    term.  Returns ``(k_total, sigma_scat)``.
+
+    A stack with more than one temperature point on a CUDA device runs
+    the batched lookup kernel (``ops.kappa_cuda.kappa_kernel``) unless
+    :func:`set_interp_mode` selects ``"gather"``; the kernel's plain twin
+    is the gather below."""
+    on_cuda = stack.values.is_cuda
+    if _INTERP_MODE == "cuda" and not on_cuda:
+        raise ValueError("interp mode 'cuda' needs the stack on a CUDA "
+                         f"device, got {stack.values.device}")
+    if on_cuda and (_INTERP_MODE == "cuda" or (
+            _INTERP_MODE is None and stack.values.shape[1] > 1)):
+        from ..ops.kappa_cuda import kappa_kernel
+        return kappa_kernel(stack, mmr, temperature, pressure_cgs,
+                            sigma_scat)
+    return _kappa_gather(stack, mmr, temperature, pressure_cgs, sigma_scat)
+
+
+def _kappa_gather(stack: OpacityStack, mmr, temperature, pressure_cgs,
+                  sigma_scat):
+    """The gather form of :func:`kappa_from_stack`, the kernel's twin."""
     per_species = interp_tp(stack, temperature, pressure_cgs)
     k_mol = torch.sum(mmr[..., None] * per_species, dim=0)
     return k_mol + sigma_scat, sigma_scat

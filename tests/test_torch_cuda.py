@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain PyTorch twins, on the card: the
-emit/absorb sweeps (``csrc/sweep.cu``) and the whole-iteration and
-whole-loop kernels (``csrc/iteration.cu``).
+emit/absorb sweeps (``csrc/sweep.cu``), the whole-iteration and
+whole-loop kernels (``csrc/iteration.cu``), the grouped trapezoid rebin
+(``csrc/rebin.cu``) and the batched kappa lookup (``csrc/kappa.cu``).
 
 Needs an NVIDIA GPU and nvcc; skipped without a GPU.  Imports no JAX,
 so it runs where the JAX package is not installed:
@@ -16,7 +17,11 @@ the layer recurrence).  An absolute term of 1e-13 (float64) or 1e-7
 iteration kernels is held piecewise (``_hold_step``): slabs and
 quadratures against the twin's sweeps, with the absorb sweep run at the
 kernel's own T1, and the temperatures against the torch epilogue on the
-kernel's own quadratures (rtol 1e-10 / 1e-5).
+kernel's own quadratures (rtol 1e-10 / 1e-5).  The rebin kernel sums in
+float64 and is held against the float64 twin at rtol 1e-12 (float64
+rows) or 1e-6 (float32 rows, one rounding of each bin); the kappa kernel
+against the gather twin at rtol 1e-10 (float64) or 1e-5 plus 1e-7 of
+the largest value (float32, summation order).
 """
 
 import numpy as np
@@ -254,3 +259,154 @@ def test_iteration_kernels_reject_bad_arguments():
         IC.rc_loop_kernel(T, Fu, Fd, pack,
                           params._replace(g=torch.full((5,), params.g)),
                           1, 2, 3.0)
+
+
+# --------------------------------------------------------------------------
+# The grouped trapezoid rebin (csrc/rebin.cu)
+# --------------------------------------------------------------------------
+
+def _rebin_case(dev):
+    """Ragged sizes (R = 5 rows, N = 4099 samples), samples past both
+    end edges, an empty bin and a one-sample bin."""
+    from frei_tpu_torch.ops import rebin_cuda as RC
+    rng = np.random.RandomState(4)
+    x = np.sort(rng.uniform(0.4, 11.0, 4099))
+    edges = np.geomspace(0.5, 10.0, 61)
+    gap = x[2001] - x[2000]
+    edges = np.sort(np.concatenate([edges, [x[1000] - 1e-9, x[1000],
+                                            x[2000] + gap / 3,
+                                            x[2000] + 2 * gap / 3]]))
+    values = rng.lognormal(0.0, 1.0, (5, 4099))
+    plan = RC.make_rebin_plan(x, edges, device=dev)
+    counts = (plan.stop - plan.start).cpu().numpy()
+    assert 0 in counts and 1 in counts
+    return RC, plan, values
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_rebin_kernel_matches_plain_twin(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the rebin kernel runs only on "
+                    "the card")
+    dev = torch.device("cuda")
+    RC, plan, values = _rebin_case(dev)
+    rows = torch.as_tensor(values, dtype=getattr(torch, dtype), device=dev)
+    n0 = RC.rebin_kernel.launches
+    got = RC.rebin_kernel(rows, plan)
+    torch.cuda.synchronize()
+    assert RC.rebin_kernel.launches == n0 + 1
+    assert got.dtype == rows.dtype and got.shape == (5, plan.n_bins)
+    ref = RC.rebin_plain(rows.double(), plan)
+    np.testing.assert_allclose(got.double().cpu().numpy(),
+                               ref.cpu().numpy(),
+                               rtol=1e-12 if dtype == "float64" else 1e-6)
+    empty = (plan.stop - plan.start) <= 1
+    assert (got[:, empty] == 0).all()
+    again = RC.rebin_kernel(rows, plan)
+    assert torch.equal(got, again)       # no atomics: identical bits
+    # a single row, and rows that are a slice of a larger slab
+    one = RC.rebin_kernel(rows[3:4].contiguous(), plan)
+    assert torch.equal(one[0], got[3])
+
+
+@pytest.mark.cuda
+def test_rebin_kernel_rejects_bad_arguments():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the rebin kernel runs only on "
+                    "the card")
+    dev = torch.device("cuda")
+    RC, plan, values = _rebin_case(dev)
+    rows = torch.as_tensor(values, dtype=torch.float32, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        RC.rebin_kernel(rows.t().contiguous().t(), plan)
+    with pytest.raises(ValueError, match="expected"):
+        RC.rebin_kernel(rows[:, 1:], plan)
+    with pytest.raises(TypeError):
+        RC.rebin_kernel(rows.half(), plan)
+    with pytest.raises(TypeError, match="plan"):
+        RC.rebin_kernel(rows, RC.make_rebin_plan(
+            np.linspace(0.4, 11.0, 4099), np.geomspace(0.5, 10.0, 61)))
+
+
+# --------------------------------------------------------------------------
+# The batched kappa lookup (csrc/kappa.cu)
+# --------------------------------------------------------------------------
+
+def _kappa_case(dtype, dev, n_p):
+    """Two species on 6 T x ``n_p`` P points, (7, 9) lookup points with
+    some outside the hull, a ragged W of 300."""
+    from frei_tpu_torch.opacity.tables import make_opacity_stack
+    rng = np.random.RandomState(8)
+    T = np.linspace(600.0, 3200.0, 6)
+    P = np.logspace(-5, 2, 5)[:n_p]
+    stack = make_opacity_stack(
+        {"1H2-16O": (rng.rand(6, n_p, W) + 0.1, T, P),
+         "12C-16O": (rng.rand(6, n_p, W) * 2, T, P)}, dtype=dtype,
+        device=dev)
+    temps = rng.uniform(400.0, 3400.0, (7, 9))
+    press = np.tile(10.0 ** rng.uniform(0, 9, 9), (7, 1))
+    if n_p == 1:
+        press[:] = P[0] * 1e6
+    mmr = rng.uniform(1e-5, 1e-3, (2, 7, 9))
+    sig = np.linspace(1e-3, 2e-3, W)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=dev)
+    return stack, t(mmr), t(temps), t(press), t(sig)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_p", [5, 1], ids=["multi-P", "single-P"])
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_kappa_kernel_matches_plain_twin(dtype, n_p):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kappa kernel runs only on "
+                    "the card")
+    from frei_tpu_torch.opacity import tables
+    from frei_tpu_torch.ops import kappa_cuda as KC
+    dt = getattr(torch, dtype)
+    stack, mmr, T, P, sig = _kappa_case(dt, torch.device("cuda"), n_p)
+    n0 = KC.kappa_kernel.launches
+    got, _ = tables.kappa_from_stack(stack, mmr, T, P, sig)
+    torch.cuda.synchronize()
+    assert KC.kappa_kernel.launches == n0 + 1      # routed to the kernel
+    ref, _ = KC.kappa_plain(stack, mmr, T, P, sig)
+    rtol, atol = (1e-10, 0.0) if dtype == "float64" else (1e-5, 1e-7)
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                               rtol=rtol,
+                               atol=atol * float(ref.abs().max()))
+    again, _ = KC.kappa_kernel(stack, mmr, T, P, sig)
+    assert torch.equal(got, again)
+    # "gather" forces the twin, with no launch
+    try:
+        tables.set_interp_mode("gather")
+        plain, _ = tables.kappa_from_stack(stack, mmr, T, P, sig)
+    finally:
+        tables.set_interp_mode(None)
+    assert torch.equal(plain, ref)
+    assert KC.kappa_kernel.launches == n0 + 2
+
+
+@pytest.mark.cuda
+def test_kappa_kernel_rejects_bad_arguments():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kappa kernel runs only on "
+                    "the card")
+    from frei_tpu_torch.ops import kappa_cuda as KC
+    stack, mmr, T, P, sig = _kappa_case(torch.float32,
+                                        torch.device("cuda"), 5)
+    with pytest.raises(TypeError):
+        KC.kappa_kernel(stack, mmr, T, P, sig.double())
+    with pytest.raises(ValueError, match="sigma_scat has shape"):
+        KC.kappa_kernel(stack, mmr, T, P, sig[:-1])
+    with pytest.raises(ValueError, match="species"):
+        KC.kappa_kernel(stack, mmr[:1], T, P, sig)
+    with pytest.raises(ValueError, match="nT >= 2"):
+        KC.kappa_kernel(stack._replace(values=stack.values[:, :1].contiguous(),
+                                       temps=stack.temps[:1]),
+                        mmr, T, P, sig)
+    with pytest.raises(ValueError, match="contiguous"):
+        KC.kappa_kernel(stack._replace(
+            values=stack.values.transpose(1, 2).contiguous().transpose(1, 2)),
+            mmr, T, P, sig)

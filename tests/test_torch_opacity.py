@@ -155,3 +155,92 @@ def test_mock_chemistry_and_kappa_model(grids):
     tg.load_opacities(opacities=tst)
     assert hasattr(tg._kappa_fn, "layer_parts")
     assert isinstance(tg.chemistry, MockChemistry)
+
+
+# --------------------------------------------------------------------------
+# The batched kappa lookup (kernel #5's plain twin and the mode switch)
+# --------------------------------------------------------------------------
+
+def _kappa_case(n_p):
+    """A two-species stack (5 T x ``n_p`` P points) and (3, 7) lookup
+    points, some outside the hull in T (both ends) and in P."""
+    rng = np.random.RandomState(11)
+    T = np.array([500.0, 1000.0, 1800.0, 2500.0, 3000.0])
+    P = np.array([1e-5, 1e-3, 1e-1, 10.0])[:n_p]
+    tabs = {"1H2-16O": (rng.rand(5, n_p, W) + 0.1, T, P),
+            "12C-16O": (rng.rand(5, n_p, W) * 3, T, P)}
+    temps = rng.uniform(500.0, 3000.0, (3, 7))
+    temps[0, 0], temps[1, 1], temps[2, 2] = 3000.0, 200.0, 4000.0
+    press = np.tile(10.0 ** rng.uniform(1, 7, 7), (3, 1))
+    if n_p > 1:
+        press[2, 3] = 1e9                      # above the P hull
+    else:
+        press[:] = P[0] * 1e6                  # on the single P point
+    mmr = rng.uniform(1e-5, 1e-3, (2, 3, 7))
+    sig = np.linspace(1e-3, 2e-3, W)
+    return tabs, temps, press, mmr, sig
+
+
+@pytest.mark.parametrize("n_p", [4, 1], ids=["multi-P", "single-P"])
+def test_kappa_twin_matches_jax_and_pallas_interpret(n_p):
+    """The kernel's twin against JAX ``kappa_from_stack`` (gather) and
+    the JAX TPU kernel ``kappa_pallas`` in interpret mode: float64,
+    rtol 1e-10 (the same blend, summed in another order), points outside
+    the hull carrying sigma alone; a one-point P axis included."""
+    from frei_tpu.ops.kappa_pallas import kappa_pallas
+    from frei_tpu_torch.ops import kappa_cuda
+
+    tabs, temps, press, mmr, sig = _kappa_case(n_p)
+    jst = jtab.make_opacity_stack(tabs, dtype=jnp.float64)
+    tst = ttab.make_opacity_stack(tabs, dtype=torch.float64)
+    jtab.set_interp_mode("gather")
+    try:
+        want, _ = jtab.kappa_from_stack(jst, jnp.asarray(mmr),
+                                        jnp.asarray(temps),
+                                        jnp.asarray(press),
+                                        jnp.asarray(sig))
+    finally:
+        jtab.set_interp_mode(None)
+    pallas, _ = kappa_pallas(jst, jnp.asarray(mmr), jnp.asarray(temps),
+                             jnp.asarray(press), jnp.asarray(sig),
+                             interpret=True)
+    args = (torch.tensor(mmr), torch.tensor(temps), torch.tensor(press),
+            torch.tensor(sig))
+    got, s = kappa_cuda.kappa_plain(tst, *args)
+    assert got.shape == (3, 7, W) and torch.equal(s, args[-1])
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-10)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), rtol=1e-10)
+    outside = [(1, 1), (2, 2)] + ([(2, 3)] if n_p > 1 else [])
+    for c, l in outside:
+        assert torch.equal(got[c, l], args[-1])
+    # on CPU tensors the wrapper and kappa_from_stack run the twin and
+    # launch (and count) nothing
+    n0 = kappa_cuda.kappa_kernel.launches
+    assert torch.equal(kappa_cuda.kappa_kernel(tst, *args)[0], got)
+    assert torch.equal(ttab.kappa_from_stack(tst, *args)[0], got)
+    assert kappa_cuda.kappa_kernel.launches == n0
+
+
+def test_interp_mode_switch():
+    """``set_interp_mode``: "gather" and None run the twin on the CPU;
+    "cuda" demands a stack on a CUDA device; the JAX package's TPU
+    formulations are refused with their counterpart named."""
+    tabs, temps, press, mmr, sig = _kappa_case(4)
+    tst = ttab.make_opacity_stack(tabs, dtype=torch.float64)
+    args = (torch.tensor(mmr), torch.tensor(temps), torch.tensor(press),
+            torch.tensor(sig))
+    ref, _ = ttab.kappa_from_stack(tst, *args)
+    try:
+        ttab.set_interp_mode("gather")
+        assert torch.equal(ttab.kappa_from_stack(tst, *args)[0], ref)
+        ttab.set_interp_mode("cuda")
+        with pytest.raises(ValueError, match="needs the stack on a CUDA"):
+            ttab.kappa_from_stack(tst, *args)
+    finally:
+        ttab.set_interp_mode(None)
+    for mode, ours in (("onehot", "gather"), ("pallas", "cuda")):
+        with pytest.raises(ValueError, match=f"counterpart here is '{ours}'"):
+            ttab.set_interp_mode(mode)
+    with pytest.raises(ValueError, match="unknown interp mode"):
+        ttab.set_interp_mode("gathr")
+    assert ttab._INTERP_MODE is None
