@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of frei_tpu_torch's main path on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # every phase (one card)
+    python3 chip_smoke.py --sweeps     # build sweep.cu; phases 3 and 3d
+    python3 chip_smoke.py --ab-leg     # one leg of a parent/change pair
 
 Phases, one report line each, any failure raising (non-zero exit):
 
@@ -12,12 +14,18 @@ Phases, one report line each, any failure raising (non-zero exit):
    library ``csrc/rebin_host.cc`` with g++, all at once, and prints the
    build time and ptxas's register report;
 3. kernel parity: each sweep kernel against its plain PyTorch twin on
-   the card, fused and materialized opacity, some columns frozen:
+   the card, fused and materialized opacity, some columns frozen, emit
+   both as the solve's emits run it and with the final emit's dtaus:
    float64 at 64 columns (rtol 1e-10), float32 at 8192 columns (rtol
    1e-4 on slabs, sums and the emit's dtaus; 1e-5 on temperatures, plus
    the change the sums' own difference makes to the update, see
    :func:`phase_parity`), with each kernel's time against its twin's at
-   the 8192-column shape;
+   the 8192-column shape, no column frozen (the main path's inputs);
+3d. where a sweep's time goes: the sweep kernels against their
+   measurement variants (a copy with the same loads and stores, the
+   arithmetic alone, no quadratures, the ring at depth 0, the ring
+   filled by TMA bulk copies, a persistent grid; see
+   :func:`phase_sweep_variants`);
 3b. whole-iteration parity: the iteration kernel against its twin on
    one RC step (float64 at 64 columns, every third frozen, rtol 1e-10;
    float32 at 8192 columns), and the loop kernel against its twin
@@ -32,8 +40,10 @@ Phases, one report line each, any failure raising (non-zero exit):
    lookup kernel in float64 at 64 columns (rtol 1e-10) and in float32
    at 8192 columns x 30 layers x 500 bins (rtol 1e-5 plus 1e-7 of the
    largest value), some points outside the hull; each kernel's time
-   against its twin's;
-4. goldens: ``Grid(..., device="cuda")`` + the synthetic fixture +
+   against its twin's, and the TPU kernels' own one-hot products timed
+   as one ``torch.matmul`` each (their ``library_ms``);
+4. goldens: ``Grid(planet)`` with no device named (it lands on the
+   card) + the synthetic fixture +
    ``emission_spectrum(n_timesteps=1)`` reproduce the published peak
    wavelength, peak flux and effective temperature through the kernels,
    and a float64 batched solve on the kernels agrees with the eager
@@ -46,7 +56,8 @@ Phases, one report line each, any failure raising (non-zero exit):
    path=..., engine=...)`` on the ``"native"`` and ``"cuda"`` engines in
    turns, timed, the tables agreeing to rtol 1e-6; a float64 8192-column
    solve on the ``"loop"`` engine on that stack (finite flux; float32
-   solves of this optically thin stack are counted, see
+   solves of this optically thin stack on ``"loop"``, ``"cuda"`` and
+   ``"eager"`` are counted, see
    :func:`phase_etl`); ``kappa_from_stack`` through the kappa kernel at
    the final temperatures against the layer tables (rtol 1e-10).
    Launch counts are set to 0 before the path and read after it; the
@@ -57,8 +68,9 @@ Phases, one report line each, any failure raising (non-zero exit):
    memory, launch counts (every count set to 0 before each engine's
    run and read after it).
 
-The second-to-last line is a JSON record of the kernels; the last line
-is ``{"ok": true, "device": {...}}``.
+The second-to-last line is a JSON record of the kernels (time, plain
+twin, bound and what bounds it, library call, launches on the main
+path); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -119,15 +131,16 @@ def check_close(name, got, ref, rtol, atol):
 
 def ptxas_summary(report):
     """One line per kernel instantiation from ``nvcc -Xptxas -v``:
-    registers and spills, named as ``emit<float, NPT=2>``."""
+    registers and spills, named as ``emit<float, NPT=2, mode 0>``."""
     out, kern, spill = [], None, ""
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '.*?"
                       r"(emit|absorb|iteration|loop|rebin|kappa)_kernelI"
-                      r"([fd])(?:Li(\d+)E)?", line)
+                      r"([fd])(?:Li(\d+)E)?(?:Li(\d+)E)?", line)
         if m:
             kern = (f"{m[1]}<{'float' if m[2] == 'f' else 'double'}"
-                    + (f", NPT={m[3]}>" if m[3] else ">"))
+                    + (f", NPT={m[3]}" if m[3] else "")
+                    + (f", mode {m[4]}" if m[4] else "") + ">")
         elif "spill" in line:
             spill = line.strip()
         elif "registers" in line and kern:
@@ -223,8 +236,62 @@ def sweep_inputs(grid, n):
     return T.contiguous(), Fu, Fd, kap, done, params
 
 
+def hold_sweep(label, got, ref, T, p, params, epi, emit, rtol, t_rtol,
+               atol_frac):
+    """One sweep's outputs against its twin's; returns (max abs error of
+    slabs, sums and dtaus, max err/bound).
+
+    Slabs and sums: rtol, plus atol_frac of the largest value for entries
+    near zero.  Temperatures and dT come from the sums through the same
+    torch epilogue.  At fixed T and p the update goes as sign(num)
+    |num|^0.1, num the numerator of the flux divergence: a difference of
+    four quadratures that nearly cancel in optically thin layers.
+    Numerators that differ by r <= 0.1 move dT by at most 0.105 r |dT|, so
+    dT is held at rtol plus 0.2 r |dT|.  Where r > 0.1 (float32, the
+    optically thin top layers only) float32 quadratures cannot resolve the
+    update in any engine: those layers are counted and must lie in the top
+    three, and are not compared."""
+    dtype = T.dtype
+    t_got, dT_got = epi(T, got[2], p, params)
+    t_ref, dT_ref = epi(T, ref[2], p, params)
+    num_ref = update_numerator(ref[2], T, p, params, emit)
+    num_got = update_numerator(got[2], T, p, params, emit)
+    r_num = (num_got - num_ref).abs() / num_ref.abs()
+    resolved = r_num <= 0.1
+    t_atol = torch.where(resolved, 0.2 * dT_ref.abs() * r_num, float("inf"))
+    loose = sorted(set((~resolved).nonzero()[:, 1].tolist()))
+    log(f"[parity] {label} layers whose update float{dtype.itemsize * 8} "
+        f"quadratures cannot resolve (r > 0.1): {int((~resolved).sum())} "
+        f"of {resolved.numel()}, all in layers {loose}")
+    assert all(l >= N_LAYERS - 3 for l in loose), loose
+    if dtype == torch.float64:
+        assert not loose, loose
+    checks = [("F_up", got[0], ref[0]), ("F_down", got[1], ref[1]),
+              ("sums", got[2], ref[2]), ("temps", t_got, t_ref)]
+    if len(got) > 3:
+        checks.append(("dtaus", got[3], ref[3]))
+    if dtype == torch.float64:
+        checks.append(("dT", dT_got, dT_ref))
+    abs_err, worst = 0.0, 0.0
+    for field, a, b in checks:
+        if field in ("temps", "dT"):
+            q = check_close(f"{label} {field}", a, b, t_rtol, t_atol)
+            r, ab = rel_err(a[resolved], b[resolved])
+            field += " (resolved layers)"
+        else:
+            q = check_close(f"{label} {field}", a, b, rtol,
+                            atol_frac * float(b.abs().max()))
+            r, ab = rel_err(a, b)
+            abs_err, worst = max(abs_err, ab), max(worst, q)
+        log(f"[parity] {label} {field:6s} max rel {r:.3e} max abs {ab:.3e} "
+            f"max err/bound {q:.3f}")
+    return abs_err, worst
+
+
 def phase_parity(dtype, n, rtol, t_rtol, atol_frac, timing):
-    """Each kernel against its twin; returns per-kernel records."""
+    """Each kernel against its twin; returns per-kernel records.  The
+    emit kernel is held as the solve's emits run it (no dtaus: the
+    instantiation that is timed) and as its final emit (with dtaus)."""
     from frei_tpu_torch.ops import sweep_cuda as S
     grid = make_grid(dtype)
     T, Fu, Fd, kaps, done, params = sweep_inputs(grid, n)
@@ -235,73 +302,149 @@ def phase_parity(dtype, n, rtol, t_rtol, atol_frac, timing):
             ("emit", S.emit_kernel, S.emit_plain, S.emit_epilogue),
             ("absorb", S.absorb_kernel, S.absorb_plain, S.absorb_epilogue)):
         rec = {"max_abs_err": 0.0, "err_over_tol": 0.0}
-        # emit also writes the solve's final dtaus diagnostic on request
-        kw = {"with_dtaus": True} if name == "emit" else {}
+        kws = ({}, {"with_dtaus": True}) if name == "emit" else ({},)
         for form, kap in kaps.items():
-            got = wrap(T, Fu, Fd, kap, sc, done, **kw)
-            torch.cuda.synchronize()
-            ref = plain(T, Fu, Fd, kap, sc, done, **kw)
-            t_got, dT_got = epi(T, got[2], p, params)
-            t_ref, dT_ref = epi(T, ref[2], p, params)
-            # Slabs and sums: rtol, plus atol_frac of the largest value
-            # for entries near zero.  Temperatures and dT come from the
-            # sums through the same torch epilogue.  At fixed T and p the
-            # update goes as sign(num) |num|^0.1, num the numerator of the
-            # flux divergence: a difference of four quadratures that
-            # nearly cancel in optically thin layers.  Numerators that
-            # differ by r <= 0.1 move dT by at most 0.105 r |dT|, so dT is
-            # held at rtol plus 0.2 r |dT|.  Where r > 0.1 (float32, the
-            # optically thin top layers only) float32 quadratures cannot
-            # resolve the update in any engine: those layers are counted
-            # and must lie in the top three, and are not compared.
-            top = name == "emit"
-            num_ref = update_numerator(ref[2], T, p, params, top)
-            num_got = update_numerator(got[2], T, p, params, top)
-            r_num = (num_got - num_ref).abs() / num_ref.abs()
-            resolved = r_num <= 0.1
-            t_atol = torch.where(resolved, 0.2 * dT_ref.abs() * r_num,
-                                 float("inf"))
-            loose = sorted(set((~resolved).nonzero()[:, 1].tolist()))
-            log(f"[parity] {name:6s} {form:12s} {str(dtype):13s} "
-                f"B={n:5d} layers whose update float{dtype.itemsize * 8} "
-                f"quadratures cannot resolve (r > 0.1): "
-                f"{int((~resolved).sum())} of {resolved.numel()}, all in "
-                f"layers {loose}")
-            assert all(l >= N_LAYERS - 3 for l in loose), loose
-            if dtype == torch.float64:
-                assert not loose, loose
-            checks = [("F_up", got[0], ref[0]), ("F_down", got[1], ref[1]),
-                      ("sums", got[2], ref[2]), ("temps", t_got, t_ref)]
-            if kw:
-                checks.append(("dtaus", got[3], ref[3]))
-            if dtype == torch.float64:
-                checks.append(("dT", dT_got, dT_ref))
-            for field, a, b in checks:
-                if field in ("temps", "dT"):
-                    q = check_close(f"{name} {form} {dtype} {field}", a, b,
-                                    t_rtol, t_atol)
-                    r, ab = rel_err(a[resolved], b[resolved])
-                    field += " (resolved layers)"
-                else:
-                    q = check_close(f"{name} {form} {dtype} {field}", a, b,
-                                    rtol, atol_frac * float(b.abs().max()))
-                    r, ab = rel_err(a, b)
-                    rec["max_abs_err"] = max(rec["max_abs_err"], ab)
-                    rec["err_over_tol"] = max(rec["err_over_tol"], q)
-                log(f"[parity] {name:6s} {form:12s} {str(dtype):13s} "
-                    f"B={n:5d} {field:6s} max rel {r:.3e} max abs {ab:.3e} "
-                    f"max err/bound {q:.3f}")
+            for kw in kws:
+                got = wrap(T, Fu, Fd, kap, sc, done, **kw)
+                torch.cuda.synchronize()
+                ref = plain(T, Fu, Fd, kap, sc, done, **kw)
+                label = (f"{name + ('+dtaus' if kw else ''):12s} {form:12s} "
+                         f"{str(dtype):13s} B={n:5d}")
+                ab, q = hold_sweep(label, got, ref, T, p, params, epi,
+                                   name == "emit", rtol, t_rtol, atol_frac)
+                rec["max_abs_err"] = max(rec["max_abs_err"], ab)
+                rec["err_over_tol"] = max(rec["err_over_tol"], q)
             if timing:
-                ms = time_ms(lambda: wrap(T, Fu, Fd, kap, sc, done), 10)
-                plain_ms = time_ms(lambda: plain(T, Fu, Fd, kap, sc, done),
+                # the main path's inputs: no column frozen
+                live = torch.zeros_like(done)
+                ms = time_ms(lambda: wrap(T, Fu, Fd, kap, sc, live), 10)
+                plain_ms = time_ms(lambda: plain(T, Fu, Fd, kap, sc, live),
                                    3)
                 log(f"[timing] {name:6s} {form:12s} kernel {ms:.4f} ms, "
                     f"plain twin {plain_ms:.4f} ms (B={n}, L={N_LAYERS}, "
-                    f"W={N_BINS}, {dtype})")
+                    f"W={N_BINS}, {dtype}, no column frozen)")
                 rec[f"ms_{form}"] = ms
                 rec[f"plain_ms_{form}"] = plain_ms
+                rec[f"bytes_{form}"] = sweep_bytes(name, kap, Fu)
         out[name] = rec
     return out
+
+
+# an element of a swept layer costs about this many float operations
+# (an FMA counts two, expm1, rsqrt and a division one each): the fused
+# kappa row (5), dtau and omega0 (3), the Planck row (3), the g0
+# couplers (55), the recurrence (8) and three quadratures (6)
+SWEEP_FLOPS = 80
+# NVIDIA H100 SXM peaks (data sheet, 700 W): HBM bytes/s, FP32 FLOP/s
+# outside the tensor cores
+PEAK_BYTES, PEAK_FP32 = 3.35e12, 67e12
+
+
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def sweep_bytes(direction, kap, Fu):
+    """Bytes one sweep must move with no column frozen, each input read
+    once and each output written once: emit reads F_down rows 0 and
+    2..L-1 and F_up rows 0-1 (L + 1 rows), absorb F_up rows 0..L-2 and
+    F_down row L-1 (L rows); both write two (B, L, W) slabs and the
+    (B, 4, L-1) sums; the opacity is the (B, L, K) weight rows plus the
+    (L, K, W) tables, or L - 1 rows of the materialized slab; plus
+    temperatures and the (W,) rows."""
+    B, L, W = Fu.shape
+    e = Fu.element_size()
+    rows = (L + 1 if direction == "emit" else L) + (L - 1) * (
+        not isinstance(kap, tuple))
+    opac = nbytes(*kap) if isinstance(kap, tuple) else 0
+    return (rows + 2 * L) * B * W * e + opac + (
+        B * 4 * (L - 1) + B * L + 5 * W + L - 1) * e
+
+
+def rc_bytes(Fu, pack, n_iters):
+    """Bytes an RC step (``n_iters`` = 1) or the whole loop must move:
+    the slabs as one emit sweep reads and writes them (the absorb sweep
+    reads the emit's own output, kept on chip), the temperatures in and
+    the step's outputs (T1, T2, dT2; or the loop's history, max|dT|,
+    counters and flags), and the pack's tables and rows once."""
+    B, L, W = Fu.shape
+    e = Fu.element_size()
+    pack_bytes = sum(nbytes(t) for t in (*pack.sc, *pack[1:]))
+    per_col = ((L + 1) + 2 * L) * W + L + (
+        3 * L if n_iters == 1 else 2 * n_iters * L + n_iters + 2 * L)
+    return B * per_col * e + pack_bytes
+
+
+def bound(bytes_, flops):
+    """(bound_ms, bound_by): the larger of bytes over the HBM rate and
+    float operations over the FP32 peak."""
+    tb, tf = bytes_ / PEAK_BYTES * 1e3, flops / PEAK_FP32 * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def phase_sweep_variants():
+    """Where a sweep's time goes, float32 at the headline shape on the
+    main path's inputs (no column frozen): the kernel against its
+    variants (csrc/sweep.cu): without the quadratures, the arithmetic
+    alone, a copy with the same loads and stores, the ring at depth 0
+    (every load in its own layer), the ring filled by TMA bulk copies,
+    and a persistent grid.  The TMA and persistent variants compute the
+    whole sweep and must give its bits.  Returns {direction: {label: ms}}."""
+    from frei_tpu_torch.ops import sweep_cuda as S
+    grid = make_grid(torch.float32)
+    T, Fu, Fd, kaps, done, params = sweep_inputs(grid, N_COLUMNS)
+    sc = S.make_sweep_consts(grid._consts, params)
+    live = torch.zeros_like(done)
+    K = kaps["fused"][0].shape[-1]
+    cases = [("sweep", "fused", {}), ("sweep", "materialized", {}),
+             ("no_sums", "fused", {}), ("arith", "fused", {}),
+             ("copy", "fused", {}), ("copy", "materialized", {}),
+             ("copy", "fused", {"depth": 0}), ("sweep", "fused", {"depth": 0}),
+             ("tma", "fused", {}), ("tma", "materialized", {}),
+             ("persistent", "fused", {})]
+    out = {}
+    for direction in ("emit", "absorb"):
+        out[direction] = {}
+        for variant, form, kw in cases:
+            kap = kaps[form]
+            tb = sweep_bytes(direction, kap, Fu) / PEAK_BYTES * 1e3
+
+            def run(variant=variant, kap=kap, kw=kw):
+                return S.sweep_variant(direction, variant, T, Fu, Fd, kap, sc,
+                                       live, **kw)
+            if variant in ("tma", "persistent"):
+                got, want = run(), run("sweep")
+                assert all(torch.equal(x, y) for x, y in zip(got, want)), \
+                    f"{direction} {variant} {form} differs from the sweep"
+            plan = S.plan_sweep(N_BINS, N_LAYERS, K, 4, form == "fused",
+                                **kw)
+            ms = time_ms(run, 10)
+            label = f"{variant} {form}" + "".join(
+                f" {k}={v}" for k, v in kw.items())
+            out[direction][label] = ms
+            log(f"[variants] {direction:6s} {label:28s} {ms:.4f} ms, "
+                f"{tb / ms:.3f} of the bytes bound ({tb:.4f} ms); plan "
+                f"{plan._asdict()}")
+    return out
+
+
+def ab_leg():
+    """One leg of a parent/change comparison, on whatever checkout holds
+    this file: each sweep kernel's time (phase 3's float32 timing) and
+    the headline on the "loop", "iteration" and "cuda" engines.  Calls
+    only wrappers every checkout of the port has.  Prints one JSON line."""
+    from frei_tpu_torch.ops import iteration_cuda as IC
+    from frei_tpu_torch.ops import sweep_cuda as S
+    with ThreadPoolExecutor(2) as pool:
+        list(pool.map(lambda m: m.build(), (S, IC)))
+    recs = phase_parity(torch.float32, N_COLUMNS, 1e-4, 1e-5, 1e-7,
+                        timing=True)
+    head = phase_headline(("loop", "iteration", "cuda"), runs=5)
+    print(json.dumps({"ab_leg": {
+        "root": str(Path(__file__).resolve().parent.name),
+        "ms": {k: r["ms_fused"] for k, r in recs.items()},
+        "ms_materialized": {k: r["ms_materialized"] for k, r in recs.items()},
+        "walls": {e: h["walls"] for e, h in head.items()}}}), flush=True)
 
 
 def hold_temps(label, got, ref, dT_ref, num_got, num_ref, t_rtol):
@@ -429,13 +572,16 @@ def phase_iteration_parity():
             scal = params._replace(g=float(params.g),
                                    m_bar=float(params.m_bar),
                                    alpha=float(params.alpha))
+            live = torch.zeros_like(done)   # the main path's inputs
             it_rec["ms"] = time_ms(lambda: IC.rc_iteration_kernel(
-                T, Fu, Fd, done, pack, scal), 10)
+                T, Fu, Fd, live, pack, scal), 10)
             it_rec["plain_ms"] = time_ms(lambda: IC.rc_iteration_plain(
-                T, Fu, Fd, done, pack, scal), 2)
+                T, Fu, Fd, live, pack, scal), 2)
+            it_rec["bytes"] = rc_bytes(Fu, pack, 1)
+            it_rec["flops"] = 2 * SWEEP_FLOPS * n * (N_LAYERS - 1) * N_BINS
             log(f"[timing] iteration kernel {it_rec['ms']:.4f} ms, plain "
                 f"twin {it_rec['plain_ms']:.4f} ms per RC step (B={n}, "
-                f"L={N_LAYERS}, W={N_BINS}, {dtype})")
+                f"L={N_LAYERS}, W={N_BINS}, {dtype}, no column frozen)")
 
     # the whole loop, float64: 64 columns, 3 iterations from the solver's
     # state (zero fluxes), a threshold between two columns' second
@@ -521,6 +667,9 @@ def phase_iteration_parity():
         T, Fz, Fz, pack, scal, N_ITERS, 10 ** 6, 0.0), 3)
     rec["plain_ms"] = time_ms(lambda: IC.rc_loop_plain(
         T, Fz, Fz, pack, scal, N_ITERS, 10 ** 6, 0.0), 1)
+    rec["bytes"] = rc_bytes(Fz, pack, N_ITERS)
+    rec["flops"] = (2 * N_ITERS * SWEEP_FLOPS * N_COLUMNS * (N_LAYERS - 1)
+                    * N_BINS)
     log(f"[timing] loop kernel {rec['ms']:.4f} ms, plain twin "
         f"{rec['plain_ms']:.4f} ms per {N_ITERS}-iteration loop "
         f"(B={N_COLUMNS}, L={N_LAYERS}, W={N_BINS}, float32)")
@@ -556,10 +705,15 @@ def phase_goldens_whole(engine):
 
 
 def phase_goldens():
-    from frei_tpu_torch import effective_temperature
+    from frei_tpu_torch import (Grid, Planet, effective_temperature,
+                                load_example_opacity)
     from frei_tpu_torch.ops import sweep_cuda as S
     from frei_tpu_torch.rt.solver import SolverConfig, solve_rc_batched
-    grid = make_grid(torch.float32)
+    # the user's call: no device named, so the grid lands on the card
+    grid = Grid(Planet.from_hot_jupiter(), T_ref=2400.0)
+    assert grid.device.type == "cuda", grid.device
+    grid.load_opacities(opacities=load_example_opacity(grid,
+                                                       scale_factor=1.0))
     n0 = (S.emit_kernel.launches, S.absorb_kernel.launches)
     spec, temps, hist, dtaus = grid.emission_spectrum(n_timesteps=1)
     n1 = (S.emit_kernel.launches, S.absorb_kernel.launches)
@@ -688,8 +842,24 @@ def phase_opacity_parity(edges_um):
     rec["rebin"]["ms"] = time_ms(lambda: RC.rebin_kernel(rows, plan), 20)
     rec["rebin"]["plain_ms"] = time_ms(lambda: RC.rebin_plain(rows, plan),
                                        3)
+    # the bytes the kernel must move (rows, panel widths, bin ranges in;
+    # bins out), a trapezoid panel's 4 operations per sample
+    rec["rebin"]["bytes"] = (nbytes(rows, plan.dx, plan.start, plan.stop)
+                             + ETL_ROWS * plan.n_bins * rows.element_size())
+    rec["rebin"]["flops"] = 4 * ETL_ROWS * ETL_SAMPLES
+    # the TPU kernel's own body, timed as one library call: the samples
+    # times a (samples, bins) one-hot of their bin codes (4 GB, built in
+    # advance), by torch.matmul in full float32
+    onehot = rows.new_zeros((plan.n_samples, plan.n_bins))
+    inside = plan.codes >= 0
+    onehot[torch.arange(plan.n_samples, device=dev)[inside],
+           plan.codes[inside]] = 1.0
+    rec["rebin"]["library_ms"] = time_ms(lambda: torch.matmul(rows, onehot),
+                                         5)
+    del onehot
     log(f"[timing] rebin kernel {rec['rebin']['ms']:.4f} ms, plain twin "
-        f"{rec['rebin']['plain_ms']:.4f} ms ({ETL_ROWS} x {ETL_SAMPLES} "
+        f"{rec['rebin']['plain_ms']:.4f} ms, one-hot torch.matmul "
+        f"{rec['rebin']['library_ms']:.4f} ms ({ETL_ROWS} x {ETL_SAMPLES} "
         f"float32 samples -> {plan.n_bins} bins, device-resident)")
     del rows
 
@@ -716,10 +886,42 @@ def phase_opacity_parity(edges_um):
                 lambda: KC.kappa_kernel(stack, mmr, T, P, sig), 20)
             rec["kappa"]["plain_ms"] = time_ms(
                 lambda: KC.kappa_plain(stack, mmr, T, P, sig), 3)
+            # the stack, the points and sigma in, (N, W) out; per output
+            # value and species 4 corner multiply-adds and the mixing
+            # ratio's (10 operations), plus sigma
+            S_ = stack.values.shape[0]
+            rec["kappa"]["bytes"] = (nbytes(stack.values, mmr, T, P, sig)
+                                     + T.numel() * N_BINS * T.element_size())
+            rec["kappa"]["flops"] = (10 * S_ + 1) * T.numel() * N_BINS
+            rec["kappa"]["library_ms"] = kappa_library_ms(stack, T, P)
             log(f"[timing] kappa kernel {rec['kappa']['ms']:.4f} ms, plain "
-                f"twin {rec['kappa']['plain_ms']:.4f} ms ({n} x {N_LAYERS} "
-                f"points x {N_BINS} bins, 2 species, float32)")
+                f"twin {rec['kappa']['plain_ms']:.4f} ms, one-hot "
+                f"torch.matmul {rec['kappa']['library_ms']:.4f} ms ({n} x "
+                f"{N_LAYERS} points x {N_BINS} bins, 2 species, float32)")
     return rec
+
+
+def kappa_library_ms(stack, T, P):
+    """The TPU kernel's own body timed as one library call: the (N, nT nP)
+    bilinear one-hot weights of the lookup points (4 corners per row,
+    masked outside the hull, built in advance) times the (nT nP, S W)
+    table, by torch.matmul in full float32."""
+    from frei_tpu_torch.opacity.tables import _axis_weights
+    S_, nT, nP, W = stack.values.shape
+    ti, tf, t_ok = (x.reshape(-1) for x in _axis_weights(stack.temps, T))
+    pj, pf, p_ok = (x.reshape(-1) for x in _axis_weights(stack.press_cgs, P))
+    N = ti.numel()
+    m = (t_ok & p_ok).to(T.dtype)
+    onehot = T.new_zeros((N, nT * nP))
+    rows = torch.arange(N, device=T.device)
+    for dt_, dp_, w in ((0, 0, (1 - tf) * (1 - pf)), (1, 0, tf * (1 - pf)),
+                        (0, 1, (1 - tf) * pf), (1, 1, tf * pf)):
+        col = ((ti + dt_).clamp(max=nT - 1) * nP
+               + (pj + dp_).clamp(max=nP - 1))
+        onehot.index_put_((rows, col), w * m, accumulate=True)
+    tab = stack.values.permute(1, 2, 0, 3).reshape(nT * nP, S_ * W)
+    tab = tab.contiguous()
+    return time_ms(lambda: torch.matmul(onehot, tab), 5)
 
 
 def phase_etl(root):
@@ -785,7 +987,7 @@ def phase_etl(root):
     # 20 iterations, on every engine, the eager one included.  Counted,
     # not asserted.
     T0 = columns(grids["cuda"], N_COLUMNS)
-    for engine in ("loop", "eager"):
+    for engine in ("loop", "cuda", "eager"):
         spec, *_ = grids["cuda"].emission_spectra(
             T0, n_timesteps=N_ITERS, n_zero_crossings=10 ** 6,
             convergence_dT=0.0, engine=engine)
@@ -855,16 +1057,17 @@ def kernel_wrappers():
             "resort_rebin": RC.rebin_kernel}
 
 
-def phase_headline():
-    """Each engine's headline solve: one warm-up and three timed solves,
-    every launch count set to 0 just before and read just after."""
+def phase_headline(engines=("loop", "iteration", "cuda", "eager"), runs=3):
+    """Each engine's headline solve: one warm-up and ``runs`` timed
+    solves, every launch count set to 0 just before and read just
+    after."""
     from frei_tpu_torch.rt.solver import SolverConfig, solve_rc_batched
     wrappers = kernel_wrappers()
     grid = make_grid(torch.float32)
     T0 = columns(grid, N_COLUMNS)
     args = solver_args(grid)
     res = {}
-    for engine in ("loop", "iteration", "cuda", "eager"):
+    for engine in engines:
         cfg = SolverConfig(n_timesteps=N_ITERS, n_zero_crossings=10 ** 6,
                            convergence_dT=0.0, engine=engine)
         for w in wrappers.values():
@@ -875,7 +1078,7 @@ def phase_headline():
         out = solve_rc_batched(T0, *args, cfg)      # warm-up
         torch.cuda.synchronize()
         walls = []
-        for _ in range(3):
+        for _ in range(runs):
             t0 = time.perf_counter()
             out = solve_rc_batched(T0, *args, cfg)
             torch.cuda.synchronize()
@@ -886,14 +1089,15 @@ def phase_headline():
         wall = min(walls)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         # a copy: the flux view would keep the whole F_up slab alive
-        res[engine] = dict(wall=wall, rate=N_COLUMNS * N_BINS / wall,
+        res[engine] = dict(wall=wall, walls=walls,
+                           rate=N_COLUMNS * N_BINS / wall,
                            launches=launches, flux=out.flux.clone(),
                            peak_gb=peak_gb)
         log(f"[headline] engine={engine:9s} {N_COLUMNS} columns x "
             f"{N_BINS} bins x {N_LAYERS} layers x {N_ITERS} iterations "
             f"float32: walls {', '.join(f'{w:.4f}' for w in walls)} s, "
             f"{res[engine]['rate']:,.0f} columns*bins/s (best), peak "
-            f"memory {peak_gb:.2f} GB, launches over 4 solves "
+            f"memory {peak_gb:.2f} GB, launches over {runs + 1} solves "
             f"{json.dumps(launches)}")
     main_path = {"cuda": ("emit_sweep", "absorb_sweep"),
                  "iteration": ("rc_iteration", "emit_sweep"),
@@ -902,6 +1106,8 @@ def phase_headline():
         got = res[engine]["launches"]
         assert all(got[k] > 0 for k in names), \
             f"engine {engine} bypassed its kernels: {got}"
+    if "eager" not in res:
+        return res
     assert not any(res["eager"]["launches"].values()), \
         "eager engine ran a kernel"
     ref = res["eager"]["flux"]
@@ -914,7 +1120,7 @@ def phase_headline():
     return res
 
 
-def main():
+def main(argv):
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
                  "run needs an NVIDIA GPU")
@@ -939,6 +1145,21 @@ def main():
         f"{torch.version.cuda}; TF32 off for matmul and cuDNN")
     log(smi)
 
+    if argv == ["--ab-leg"]:
+        ab_leg()
+        return
+    if argv == ["--sweeps"]:
+        # the sweep kernels alone: build, parity, times and variants
+        log("\n".join(f"[build] {line}" for line in ptxas_summary(S.build())))
+        phase_parity(torch.float64, PARITY64_COLUMNS, 1e-10, 1e-10, 1e-13,
+                     timing=False)
+        phase_parity(torch.float32, N_COLUMNS, 1e-4, 1e-5, 1e-7,
+                     timing=True)
+        phase_sweep_variants()
+        return
+    if argv:
+        sys.exit(f"chip_smoke: unknown arguments {argv}")
+
     # phase 2: build, one compiler per source, all started together
     t0 = time.perf_counter()
     with ThreadPoolExecutor(5) as pool:
@@ -957,13 +1178,15 @@ def main():
                  timing=False)
     recs = phase_parity(torch.float32, N_COLUMNS, 1e-4, 1e-5, 1e-7,
                         timing=True)
+    # phase 3d: where a sweep's time goes (the kernel's variants)
+    phase_sweep_variants()
 
     # phase 3b: the whole-iteration kernels against their twins
     whole = phase_iteration_parity()
     # phase 3c: the opacity plane's kernels against their twins
     opac = phase_opacity_parity(make_grid(torch.float32).wl_bins)
 
-    # phase 4: goldens through Grid(device="cuda")
+    # phase 4: goldens through Grid(planet), which lands on the card
     phase_goldens()
     # phase 4b: the same goldens on the whole-iteration engines
     for engine in ("loop", "iteration"):
@@ -984,43 +1207,50 @@ def main():
     log(f"[headline] on {smi}: " + ", ".join(
         f"{e} {head[e]['rate']:,.0f}" for e in head) + " columns*bins/s")
 
-    kernels = []
+    # each kernel: its time and its plain twin's at the main path's shapes,
+    # the least time the card could take for the same work (bytes moved
+    # over the HBM rate or float operations over the FP32 peak, whichever
+    # is larger), one library call's time where one PyTorch call computes
+    # the kernel's body, and the launches of the main path's run
+    flops_sweep = SWEEP_FLOPS * N_COLUMNS * (N_LAYERS - 1) * N_BINS
+    rows = []
     for k in ("emit", "absorb"):
         r = recs[k]
-        kernels.append({
-            "name": f"{k}_sweep", "route": "cuda",
-            "source": "frei_tpu_torch/csrc/sweep.cu",
-            "replaces": ("frei_tpu/ops/sweep_pallas.py:428" if k == "emit"
-                         else "frei_tpu/ops/sweep_pallas.py:484"),
-            "launches": head["cuda"]["launches"][f"{k}_sweep"],
-            "max_abs_err": r["max_abs_err"],
-            "err_over_tol": r["err_over_tol"],
-            "ms": r["ms_fused"], "plain_ms": r["plain_ms_fused"],
-            "ms_materialized": r["ms_materialized"],
-            "plain_ms_materialized": r["plain_ms_materialized"]})
+        rows.append((f"{k}_sweep", "sweep.cu",
+                     "frei_tpu/ops/sweep_pallas.py:"
+                     + ("428" if k == "emit" else "484"),
+                     head["cuda"]["launches"][f"{k}_sweep"],
+                     dict(r, ms=r["ms_fused"], plain_ms=r["plain_ms_fused"],
+                          bytes=r["bytes_fused"], flops=flops_sweep),
+                     {"ms_materialized": r["ms_materialized"],
+                      "plain_ms_materialized": r["plain_ms_materialized"]}))
     for k, line in (("iteration", 163), ("loop", 297)):
-        r = whole[k]
-        kernels.append({
-            "name": f"rc_{k}", "route": "cuda",
-            "source": "frei_tpu_torch/csrc/iteration.cu",
-            "replaces": f"frei_tpu/ops/iteration_pallas.py:{line}",
-            "launches": head[k]["launches"][f"rc_{k}"],
-            "max_abs_err": r["max_abs_err"],
-            "err_over_tol": r["err_over_tol"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"]})
+        rows.append((f"rc_{k}", "iteration.cu",
+                     f"frei_tpu/ops/iteration_pallas.py:{line}",
+                     head[k]["launches"][f"rc_{k}"], whole[k], {}))
     for k, name_, src, replaces in (
             ("kappa", "kappa_lookup", "kappa.cu",
              "frei_tpu/ops/kappa_pallas.py:48"),
             ("rebin", "resort_rebin", "rebin.cu",
              "frei_tpu/ops/rebin_pallas.py:47")):
-        r = opac[k]
+        rows.append((name_, src, replaces, etl["launches"][name_], opac[k],
+                     {}))
+    kernels = []
+    for name_, src, replaces, launches, r, extra in rows:
+        bound_ms, bound_by = bound(r["bytes"], r["flops"])
         kernels.append({
             "name": name_, "route": "cuda",
             "source": f"frei_tpu_torch/csrc/{src}", "replaces": replaces,
-            "launches": etl["launches"][name_],
-            "max_abs_err": r["max_abs_err"],
+            "launches": launches, "max_abs_err": r["max_abs_err"],
             "err_over_tol": r["err_over_tol"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"]})
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": r.get("library_ms"), **extra})
+        log(f"[kernels] {name_:12s} {r['ms']:.4f} ms, bound {bound_ms:.4f} "
+            f"ms by {bound_by} ({bound_ms / r['ms']:.3f} of it), plain "
+            f"{r['plain_ms']:.4f} ms, library "
+            + (f"{r['library_ms']:.4f} ms" if "library_ms" in r else "none")
+            + f", {launches} launches on the main path; {smi}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": name,
@@ -1028,4 +1258,4 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

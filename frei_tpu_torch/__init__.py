@@ -7,19 +7,24 @@ radiative-convective solver, with every Pallas kernel of ``frei_tpu``
 written by hand in CUDA (``csrc/*.cu``).  It imports no JAX;
 ``frei_tpu`` stays the reference it is tested against.
 
+The entry points (``Grid``, ``make_opacity_stack``,
+``binned_opacity_stack``, ``load_example_opacity``) put their tensors on
+the card unless the caller names another device; where CUDA is absent,
+``Grid(...)`` raises unless given ``device="cpu"``.
+
 Quickstart::
 
     from frei_tpu_torch import Planet, Grid, load_example_opacity
 
     planet = Planet.from_hot_jupiter()
-    grid = Grid(planet, n_wl_bins=300, n_layers=15, T_ref=2400.0,
-                device="cpu")        # or device="cuda"
+    grid = Grid(planet, n_wl_bins=300, n_layers=15, T_ref=2400.0)
+    # on the CPU: Grid(..., device="cpu")
     grid.load_opacities(opacities=load_example_opacity(grid))
     spec, temps, temp_hist, dtaus = grid.emission_spectrum(n_timesteps=1)
 
 or, from on-disk opacity stores (``opacity.etl``)::
 
-    grid.load_opacities(path="stores/", engine="cuda")   # device="cuda"
+    grid.load_opacities(path="stores/", engine="cuda")
 """
 
 from .api import (Grid, Planet, Spectrum, effective_temperature,

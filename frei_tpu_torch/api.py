@@ -109,7 +109,9 @@ class Grid:
     T(P) power law around T_ref = 2300 K at 0.1 bar.
 
     ``dtype`` and ``device`` say where and in what precision the solve
-    runs; the device is whatever the caller names (default the CPU).
+    runs.  The device is the card (``"cuda"``) unless the caller names
+    another; without CUDA the default raises, and ``device="cpu"`` runs
+    the solve on the CPU.
     """
 
     def __init__(
@@ -118,11 +120,15 @@ class Grid:
         lam_min=0.5, lam_max=10.0, n_wl_bins=500,
         P_toa=1e-6, P_boa=200.0, n_layers=30,
         T_ref=2300.0, P_ref=0.1, alpha=0.1,
-        dtype=torch.float32, device="cpu",
+        dtype=torch.float32, device="cuda",
     ):
         self.planet = planet
         self.dtype = dtype
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"Grid: device {str(self.device)!r} but no CUDA device is "
+                "available here; pass device=\"cpu\" to run on the CPU")
         self.rt_grid: RTGrid = make_rt_grid(
             lam_min_micron=units.to_micron(lam_min),
             lam_max_micron=units.to_micron(lam_max),

@@ -542,15 +542,16 @@ def binned_opacity_stack(rt_grid: RTGrid, species=None, path=None,
                          engine="auto", cache=True, dtype=None,
                          groupies=True, device=None):
     """binned_opacity_tables -> :class:`OpacityStack` in ``dtype``
-    (default float32) on ``device`` (default the CPU), where the
+    (default float32) on ``device`` (default the card), where the
     ``"eager"`` and ``"cuda"`` engines also run."""
     from .tables import make_opacity_stack
+    device = "cuda" if device is None else device
     tables = binned_opacity_tables(rt_grid, species=species, path=path,
                                    engine=engine, cache=cache,
                                    groupies=groupies, device=device)
     return make_opacity_stack(
         tables, dtype=torch.float32 if dtype is None else dtype,
-        device="cpu" if device is None else device)
+        device=device)
 
 
 # ---------------------------------------------------------------------------

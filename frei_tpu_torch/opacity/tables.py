@@ -79,9 +79,10 @@ def _canonicalize_axis(coord, values, axis):
 
 
 def make_opacity_stack(tables: dict, dtype=torch.float32,
-                       device="cpu") -> OpacityStack:
-    """Build an :class:`OpacityStack` from per-species arrays
-    ``{isotopologue: (values (nT, nP, W), temps_K, press_bar)}``."""
+                       device="cuda") -> OpacityStack:
+    """Build an :class:`OpacityStack` on ``device`` (default the card)
+    from per-species arrays ``{isotopologue: (values (nT, nP, W),
+    temps_K, press_bar)}``."""
     species = tuple(tables.keys())
     ref_T, ref_P = None, None
     stacked = []
@@ -260,9 +261,9 @@ def load_example_opacity(grid, seed: int = 42, scale_factor: float = 20.0,
     ``frei_tpu.opacity.tables.load_example_opacity`` (reference
     `frei/opacity.py:272-342` without its x5 prefactor; see that
     function for the calibration note).  ``device`` defaults to the
-    grid's own ``device`` where it has one, else the CPU."""
+    grid's own ``device`` where it has one, else the card."""
     if device is None:
-        device = getattr(grid, "device", "cpu")
+        device = getattr(grid, "device", "cuda")
     lam_um = np.asarray(grid.lam_micron, dtype=np.float64)
     press_bar = np.asarray(grid.pressures_bar, dtype=np.float64)
     temps = np.asarray(grid.init_temperatures, dtype=np.float64)

@@ -15,7 +15,15 @@ Each sweep direction has
   for CPU tensors, and counts its launches in ``.launches``;
 * a plain PyTorch twin (:func:`emit_plain`, :func:`absorb_plain`) with
   the same signature and outputs, which the CPU tests hold against the
-  JAX package and the card's smoke run holds the kernel against.
+  JAX package and the card's smoke run holds the kernel against;
+* a launch plan (:func:`plan_sweep`): threads, wavelengths per thread,
+  the depth of the kernel's shared-memory ring (0 or 1) and the rows it
+  stages, and the shared-memory bytes, which the kernel checks against
+  its own layout.
+
+:func:`sweep_variant` launches the kernel's measurement variants (see
+``VARIANTS``) and the ring at depth 0; it is for timing on the card and
+is not counted in ``.launches``.
 
 The opacity argument ``kappa`` is either the materialized (B, L, W)
 total-opacity slab or a pair ``(ohs, tab)`` of (B, L, K) T-interpolation
@@ -40,10 +48,27 @@ from .twostream import two_stream_couplers_g0
 __all__ = ["SweepConsts", "make_sweep_consts", "emit_kernel",
            "absorb_kernel", "emit_plain", "absorb_plain",
            "emit_epilogue", "absorb_epilogue", "emit_sweep_cuda",
-           "absorb_sweep_cuda", "build"]
+           "absorb_sweep_cuda", "build", "SweepPlan", "plan_sweep",
+           "sweep_smem_bytes", "sweep_variant"]
 
 _SOURCE = CSRC / "sweep.cu"
 _LIB_PATH = BUILD_DIR / "libfrei_sweep.so"
+
+#: kappa rows per ring slot that a plan starts from: two compacted table
+#: rows, one species of a linear T interpolation (PERF.md §5)
+STAGED_KAPPA_ROWS = 2
+#: a plan shrinks its ring to stay under this many bytes of shared memory
+#: per block, so that the blocks the registers allow fit on an SM (six of
+#: 128 threads for the float32 headline)
+SMEM_TARGET = 36 * 1024
+SMEM_LIMIT = 227 * 1024
+#: kernel variants of csrc/sweep.cu (the solver launches only "sweep"):
+#: without the quadratures ("no_sums", sums left unwritten); also without
+#: the layer arithmetic ("copy": the same loads, stores and carry); the
+#: arithmetic and quadratures alone ("arith": no ring, no stores); the
+#: ring filled by TMA bulk copies ("tma"); a persistent grid ("persistent")
+VARIANTS = {"sweep": 0, "no_sums": 1, "copy": 3, "arith": 4, "tma": 8,
+            "persistent": 16}
 
 
 class SweepConsts(NamedTuple):
@@ -209,7 +234,8 @@ def _library():
     global _lib
     with _lib_lock:
         if _lib is None:
-            sig = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            sig = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 10
+                   + [ctypes.c_void_p])
             _lib = load_library(_SOURCE, _LIB_PATH, {
                 name: sig for name in (
                     "frei_emit_sweep_f32", "frei_emit_sweep_f64",
@@ -221,10 +247,90 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+class SweepPlan(NamedTuple):
+    """How one sweep launches: one block of ``threads`` per column, each
+    thread owning ``npt`` wavelengths; a shared-memory ring ``depth`` (0
+    or 1) layers ahead of the layer being computed, each slot holding ``rows``
+    rows (the stale flux row, then kappa rows); ``smem`` bytes of dynamic
+    shared memory in all."""
+
+    threads: int
+    npt: int
+    depth: int
+    rows: int
+    smem: int
+
+
+def _align16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def sweep_smem_bytes(fused: bool, L: int, K: int, elem: int, threads: int,
+                     npt: int, depth: int, rows: int) -> int:
+    """Dynamic shared memory of one sweep block, the layout of
+    ``csrc/sweep.cu`` (``layout``): the compacted weights (fused form),
+    1/T and dtf of the column, the per-warp quadrature partials and the
+    ring of ``depth + 1`` slots of ``rows`` rows of ``threads * npt``."""
+    lk = L * K if fused else 0
+    return (_align16(lk * elem) + _align16(lk * 4)
+            + _align16(L * 4 if fused else 0)
+            + _align16(L * elem) + _align16((L - 1) * elem)
+            + _align16((3 * (L - 1) + 1) * (threads // 32) * elem)
+            + _align16((depth + 1) * rows * threads * npt * elem))
+
+
+def _block_shape(W: int):
+    """Wavelengths per thread and threads per block (a whole number of
+    warps).  Wavelengths per thread are the smallest power of two up to 8
+    that leaves at most 128 threads: four independent layer chains per
+    thread in small blocks hide latency best (PERF.md §6).  The kernels
+    take at most 128 threads up to 4 wavelengths per thread and 256 at
+    8, so W <= 2048."""
+    npt = 1
+    while -(-W // npt) > 128 and npt < 8:
+        npt *= 2
+    per = -(-W // npt)
+    if per > (128 if npt <= 4 else 256):
+        raise ValueError(f"no block shape for W={W}: more than 2048 "
+                         "wavelengths")
+    return npt, (per + 31) // 32 * 32
+
+
+def plan_sweep(W: int, L: int, K: int, elem: int, fused: bool,
+               depth: int = 1) -> SweepPlan:
+    """The launch plan of one sweep over (B, L, W) slabs of ``elem``-byte
+    values, fused (K weight rows) or materialized opacity.
+
+    The ring stages the stale flux row and the layer's kappa rows (the
+    materialized row, or ``STAGED_KAPPA_ROWS`` compacted table rows) one
+    layer ahead (``depth`` 1, two slots).  Where that exceeds
+    ``SMEM_TARGET`` it stages fewer kappa rows, and failing that each
+    layer stages only its own flux row (depth 0, one slot).  ``depth=0``
+    asks for that plan outright (a measurement of what the ring gains)."""
+    if depth not in (0, 1):
+        raise ValueError(f"the sweep's ring is 0 or 1 layers deep, got "
+                         f"{depth}")
+    npt, threads = _block_shape(W)
+    kappa_rows = min(K, STAGED_KAPPA_ROWS) if fused else 1
+
+    def size(d, rows):
+        return sweep_smem_bytes(fused, L, K, elem, threads, npt, d, rows)
+
+    if size(0, 1) > SMEM_LIMIT:
+        raise ValueError(f"weight rows of {L} x {K} exceed the kernel's "
+                         "shared memory")
+    for nk in range(kappa_rows, -1, -1):
+        if depth and size(1, 1 + nk) <= SMEM_TARGET:
+            return SweepPlan(threads, npt, 1, 1 + nk, size(1, 1 + nk))
+    return SweepPlan(threads, npt, 0, 1, size(0, 1))
+
+
 def _launch(direction: str, temps, F_up, F_down, kappa, sc: SweepConsts,
-            done, with_dtaus=False):
+            done, with_dtaus=False, mode=0, **plan_kw):
     """Check the arguments, allocate the outputs and launch one sweep
-    on the current stream (no synchronization)."""
+    on the current stream (no synchronization).  ``mode`` (a value of
+    ``VARIANTS``) and ``plan_kw`` (``depth`` of :func:`plan_sweep`)
+    select measurement variants."""
     B, L, W = F_up.shape
     dtype, device = F_up.dtype, F_up.device
     if dtype not in (torch.float32, torch.float64):
@@ -235,9 +341,6 @@ def _launch(direction: str, temps, F_up, F_down, kappa, sc: SweepConsts,
         K = ohs.shape[-1]
         kap = None
         shapes = {"ohs": (ohs, (B, L, K)), "tab": (tab, (L, K, W))}
-        if L * K * (F_up.element_size() + 4) + 4 * L > 200 * 1024:
-            raise ValueError(f"weight rows of {L} x {K} exceed the "
-                             "kernel's shared memory")
     else:
         ohs = tab = None
         K = 0
@@ -267,6 +370,7 @@ def _launch(direction: str, temps, F_up, F_down, kappa, sc: SweepConsts,
     if L < 3 or W > 8 * 256:
         raise ValueError(f"sweep kernels need L >= 3 and W <= 2048, got "
                          f"L={L}, W={W}")
+    plan = plan_sweep(W, L, K, F_up.element_size(), fused, **plan_kw)
 
     F_up_out = torch.empty_like(F_up)
     F_down_out = torch.empty_like(F_down)
@@ -282,7 +386,8 @@ def _launch(direction: str, temps, F_up, F_down, kappa, sc: SweepConsts,
                  sc.c1.data_ptr(), sc.xrow.data_ptr(), sc.sigma.data_ptr(),
                  sc.f_toa.data_ptr(), sc.tw.data_ptr(),
                  F_up_out.data_ptr(), F_down_out.data_ptr(),
-                 sums.data_ptr(), _ptr(dtaus), B, L, W, K, stream)
+                 sums.data_ptr(), _ptr(dtaus), B, L, W, K, *plan, mode,
+                 stream)
     if err != 0:
         raise RuntimeError(f"{direction} sweep kernel launch failed: "
                            f"CUDA error {err}")
@@ -319,6 +424,21 @@ def absorb_kernel(temps, F_up, F_down, kappa, sc: SweepConsts, done=None):
 
 emit_kernel.launches = 0
 absorb_kernel.launches = 0
+
+
+def sweep_variant(direction: str, variant: str, temps, F_up, F_down, kappa,
+                  sc: SweepConsts, done=None, **plan_kw):
+    """One launch of a variant of the ``direction`` sweep kernel on CUDA
+    tensors, for timing: ``variant`` is a key of ``VARIANTS`` and
+    ``plan_kw`` is ``depth`` of :func:`plan_sweep` (0: no ring ahead).
+    The variants other than "sweep" exist in float32 at 4 wavelengths per
+    thread (256 < W <= 512), write no dtaus, and "tma" needs the ring of
+    depth 1 and rows of whole 16-byte pieces.  Not counted in the
+    wrappers' launches."""
+    if not F_up.is_cuda:
+        raise RuntimeError("sweep variants run only on a CUDA device")
+    return _launch(direction, temps, F_up, F_down, kappa, sc, done,
+                   mode=VARIANTS[variant], **plan_kw)
 
 
 # --------------------------------------------------------------------------

@@ -12,7 +12,7 @@ import torch
 
 import frei_tpu
 from frei_tpu_torch import (Grid, Planet, effective_temperature,
-                            load_example_opacity)
+                            load_example_opacity, make_opacity_stack)
 from frei_tpu_torch.opacity.hotpath import build_kappa_model
 from frei_tpu_torch.rt.physics import PhysicsParams
 from frei_tpu_torch.rt.solver import SolverConfig, solve_rc_batched
@@ -23,7 +23,8 @@ torch.set_num_threads(2)
 @pytest.fixture(scope="module", params=["float64", "float32"])
 def golden_run(request):
     dtype = getattr(torch, request.param)
-    grid = Grid(Planet.from_hot_jupiter(), T_ref=2400.0, dtype=dtype)
+    grid = Grid(Planet.from_hot_jupiter(), T_ref=2400.0, dtype=dtype,
+                device="cpu")
     grid.load_opacities(opacities=load_example_opacity(
         grid, scale_factor=1.0, dtype=dtype))
     return (grid,) + grid.emission_spectrum(n_timesteps=1)
@@ -56,7 +57,8 @@ def test_emission_spectrum_matches_jax():
                        dtype=jnp.float64)
     jg.load_opacities(opacities=frei_tpu.load_example_opacity(
         jg, scale_factor=1.0, dtype=jnp.float64))
-    tg = Grid(Planet.from_hot_jupiter(), T_ref=2400.0, dtype=torch.float64)
+    tg = Grid(Planet.from_hot_jupiter(), T_ref=2400.0, dtype=torch.float64,
+              device="cpu")
     tg.load_opacities(opacities=load_example_opacity(
         tg, scale_factor=1.0, dtype=torch.float64))
     ref = jg.emission_spectrum(n_timesteps=2)
@@ -75,7 +77,7 @@ def test_emission_spectrum_matches_jax():
 
 def test_emission_spectra_matches_columns():
     grid = Grid(Planet.from_hot_jupiter(), n_wl_bins=24, n_layers=7,
-                T_ref=2400.0, dtype=torch.float64)
+                T_ref=2400.0, dtype=torch.float64, device="cpu")
     grid.load_opacities(opacities=load_example_opacity(
         grid, scale_factor=1.0, dtype=torch.float64))
     T = np.asarray(grid.init_temperatures)[None, :] * np.array(
@@ -104,12 +106,28 @@ def test_import_loads_no_jax():
 @pytest.fixture(scope="module")
 def small():
     grid = Grid(Planet.from_hot_jupiter(), n_wl_bins=16, n_layers=5,
-                T_ref=2400.0, dtype=torch.float64)
+                T_ref=2400.0, dtype=torch.float64, device="cpu")
     grid.load_opacities(opacities=load_example_opacity(
         grid, scale_factor=1.0, dtype=torch.float64))
     T = torch.tensor(np.asarray(grid.init_temperatures)[None, :]
                      .repeat(2, 0))
     return grid, T
+
+
+def test_default_device_is_the_card():
+    """The entry points run on the card unless the caller names the CPU:
+    without CUDA, ``Grid(planet)`` raises and names ``device="cpu"``, and
+    the stack builders default to the card as well."""
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the default lands on the card")
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        Grid(Planet.from_hot_jupiter())
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        Grid(Planet.from_hot_jupiter(), device="cuda")
+    assert Grid(Planet.from_hot_jupiter(), device="cpu").device.type == "cpu"
+    with pytest.raises((RuntimeError, AssertionError)):
+        make_opacity_stack({"1H2-16O": (np.ones((2, 2, 3)), [1e3, 2e3],
+                                        [1e-3, 1.0])})
 
 
 def test_cuda_engine_on_cpu_tensors_raises(small):
@@ -162,7 +180,8 @@ def test_unported_feature_raises(small, case):
                              cfg._replace(engine=case))
         return
     if case == "chemistry-equilibrium":
-        g2 = Grid(Planet.from_hot_jupiter(), n_wl_bins=16, n_layers=5)
+        g2 = Grid(Planet.from_hot_jupiter(), n_wl_bins=16, n_layers=5,
+                  device="cpu")
         with pytest.raises(NotImplementedError, match="item 10"):
             g2.load_opacities(opacities=load_example_opacity(g2),
                               chemistry="equilibrium")
@@ -170,7 +189,8 @@ def test_unported_feature_raises(small, case):
     if case == "etl":
         # ported: binning from stores runs, and a path with no store
         # raises as in the JAX package
-        g2 = Grid(Planet.from_hot_jupiter(), n_wl_bins=16, n_layers=5)
+        g2 = Grid(Planet.from_hot_jupiter(), n_wl_bins=16, n_layers=5,
+                  device="cpu")
         with pytest.raises(FileNotFoundError, match="nowhere"):
             g2.load_opacities(path="nowhere/*.ftop")
         return

@@ -63,16 +63,94 @@ def _inputs(dtype, dev, grid=None):
     return S.make_sweep_consts(grid._consts, params), T, Fu, Fd, kaps, done
 
 
+class _Consts:
+    """The fields of ``RTConstants`` that ``make_sweep_consts`` reads."""
+
+    def __init__(self, L, W, dtype, dev, rng):
+        def t(a):
+            return torch.as_tensor(a, dtype=dtype, device=dev)
+        lam = np.geomspace(0.5e-4, 10e-4, W)          # cm
+        self.pressures = t(np.geomspace(200.0, 1e-6, L) * 1e6)
+        self.lam_cm = t(lam)
+        self.sigma_scat = t(1e-4 * (0.5e-4 / lam) ** 4)
+        self.F_toa = t(rng.uniform(0.5, 1.5, W) * 1e12)
+        self.trapz_w = t(np.full(W, 1e-6) if W == 1
+                         else np.gradient(lam) * rng.uniform(0.9, 1.1, W))
+
+
+def _sweep_case(dtype, dev, B_, L_, W_, K, frozen):
+    """Seeded sweep inputs at any shape, independent of the grid: a T(P)
+    profile x U(0.9, 1.1) per column, random flux states, weight rows
+    with two adjacent non-zero T weights per species (K = S x nT, as
+    ``layer_interp_weights`` makes them; K = 70 is two species of 35 and
+    needs three ballot chunks), positive tables, and ``frozen`` columns
+    ("none", "some", "all")."""
+    rng = np.random.RandomState(B_ * 1000 + L_ * 10 + W_ + K)
+    consts = _Consts(L_, W_, dtype, dev, rng)
+    p = PhysicsParams(*(torch.as_tensor(x, dtype=dtype, device=dev)
+                        for x in (2478.0, 2.3 * 1.6605e-24, 0.1)), n_dof=5)
+    sc = S.make_sweep_consts(consts, p)
+    prof = 2400.0 * np.geomspace(1.6, 0.6, L_)
+    T = prof[None, :] * rng.uniform(0.9, 1.1, (B_, 1))
+    Fu, Fd = (rng.rand(B_, L_, W_) * 1e13 for _ in range(2))
+    S_, nT = (2, K // 2) if K == 70 else (1, K)
+    ohs = np.zeros((B_, L_, K))
+    for s in range(S_):
+        t = rng.randint(0, nT - 1, (B_, L_))
+        f = rng.uniform(0.0, 1.0, (B_, L_))
+        mmr = rng.uniform(1e-4, 1e-3, (B_, L_))
+        bb, ll = np.meshgrid(np.arange(B_), np.arange(L_), indexing="ij")
+        ohs[bb, ll, s * nT + t] = (1 - f) * mmr
+        ohs[bb, ll, s * nT + t + 1] = f * mmr
+    tab = rng.uniform(0.1, 3.0, (L_, K, W_)) * 10.0 ** rng.uniform(
+        -2, 3, (L_, 1, W_))
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=dev).contiguous()
+    ohs_t, tab_t = t(ohs), t(tab)
+    kaps = {"fused": (ohs_t, tab_t),
+            "materialized": (torch.einsum("blk,lkw->blw", ohs_t, tab_t)
+                             + sc.sigma).contiguous()}
+    done = {"none": np.zeros(B_, bool), "all": np.ones(B_, bool),
+            "some": np.arange(B_) % 3 == 1}[frozen]
+    return (sc, t(T), t(Fu), t(Fd), kaps,
+            torch.as_tensor(done, device=dev))
+
+
+# (B, L, W, K, frozen columns): every NPT (W 1 .. 2048), rows that are
+# not a multiple of 16 bytes (W 33, 500 in float64 ... ), one column,
+# L = 3 and 30, one and two species (K 30, 70), and the ring's plans
+# from depth 0 (W 2048, float64, K 70) to the full ring
+_SWEEP_CASES = {
+    "B5-L7-W300-K7": None,             # the grid fixture (below)
+    "B1-L3-W1-K30-none": (1, 3, 1, 30, "none"),
+    "B4-L30-W33-K70-all": (4, 30, 33, 70, "all"),
+    "B3-L30-W256-K30-some": (3, 30, 256, 30, "some"),
+    "B6-L30-W500-K70-some": (6, 30, 500, 70, "some"),
+    "B2-L3-W1000-K30-none": (2, 3, 1000, 30, "none"),
+    "B3-L30-W2048-K70-some": (3, 30, 2048, 70, "some"),
+    "B2-L30-W2048-K30-none": (2, 30, 2048, 30, "none"),
+}
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", list(_SWEEP_CASES))
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 @pytest.mark.parametrize("direction", ["emit", "absorb"])
-def test_kernel_matches_plain_twin(direction, dtype):
+def test_kernel_matches_plain_twin(direction, dtype, case):
+    """Slabs and sums (and the final emit's dtaus) against the twin, fused
+    and materialized opacity, with and without the freeze; repeated
+    launches give identical bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the sweep kernels run only on "
                     "the card")
     dt = getattr(torch, dtype)
+    dev = torch.device("cuda")
     rtol, atol = (1e-10, 1e-13) if dtype == "float64" else (1e-4, 1e-7)
-    sc, T, Fu, Fd, kaps, done = _inputs(dt, torch.device("cuda"))
+    if _SWEEP_CASES[case] is None:
+        sc, T, Fu, Fd, kaps, done = _inputs(dt, dev)
+    else:
+        sc, T, Fu, Fd, kaps, done = _sweep_case(dt, dev, *_SWEEP_CASES[case])
     wrap = S.emit_kernel if direction == "emit" else S.absorb_kernel
     plain = S.emit_plain if direction == "emit" else S.absorb_plain
     for form, kap in kaps.items():
@@ -88,6 +166,9 @@ def test_kernel_matches_plain_twin(direction, dtype):
                     b, a, rtol=rtol, atol=atol * float(np.abs(a).max()),
                     err_msg=f"{direction} {form} done={d is not None} "
                             f"{name}")
+            if d is not None:       # frozen columns keep their rows
+                assert torch.equal(got[0][d], Fu[d])
+                assert torch.equal(got[1][d], Fd[d])
         if direction == "emit":     # the final emit's dtaus diagnostic
             *_, d_got = wrap(T, Fu, Fd, kap, sc, None, with_dtaus=True)
             *_, d_ref = plain(T, Fu, Fd, kap, sc, None, with_dtaus=True)
@@ -98,6 +179,26 @@ def test_kernel_matches_plain_twin(direction, dtype):
         again = wrap(T, Fu, Fd, kap, sc, done)
         first = wrap(T, Fu, Fd, kap, sc, done)
         assert all(torch.equal(x, y) for x, y in zip(again, first))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["tma", "persistent"])
+@pytest.mark.parametrize("direction", ["emit", "absorb"])
+def test_sweep_variants_give_the_sweeps_bits(direction, variant):
+    """The measurement variants that compute the whole sweep (its ring
+    filled by TMA bulk copies; a persistent grid, here with fewer blocks
+    than the 1000 columns) give the sweep's bits, fused and materialized,
+    some columns frozen."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the sweep kernels run only on "
+                    "the card")
+    dev = torch.device("cuda")
+    sc, T, Fu, Fd, kaps, done = _sweep_case(torch.float32, dev, 1000, 30,
+                                            500, 70, "some")
+    for form, kap in kaps.items():
+        want = S.sweep_variant(direction, "sweep", T, Fu, Fd, kap, sc, done)
+        got = S.sweep_variant(direction, variant, T, Fu, Fd, kap, sc, done)
+        assert all(torch.equal(x, y) for x, y in zip(got, want)), form
 
 
 @pytest.mark.cuda

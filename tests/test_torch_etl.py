@@ -138,7 +138,8 @@ def test_binned_stack_end_to_end(cache_env):
     etl.make_synthetic_store(store_dir / "1H2-16O__synthetic.ftop",
                              n_hr=40000)
     grid = make_rt_grid(n_wl_bins=64, n_layers=8, T_ref=2400.0)
-    stack = etl.binned_opacity_stack(grid, dtype=torch.float64)
+    stack = etl.binned_opacity_stack(grid, dtype=torch.float64,
+                                     device="cpu")
     assert stack.species == ("1H2-16O",)
     assert stack.values.shape == (1, 8, 8, 64)
     assert stack.values.dtype == torch.float64
@@ -151,7 +152,8 @@ def test_binned_stack_end_to_end(cache_env):
     assert len(list((cache_env / "cache" / "binned").glob("*.npz"))) == 1
     for tabs in (again, jax_hit):
         np.testing.assert_array_equal(
-            make_opacity_stack(tabs, dtype=torch.float64).values.numpy(), v)
+            make_opacity_stack(tabs, dtype=torch.float64,
+                               device="cpu").values.numpy(), v)
 
 
 def test_species_filter_and_missing(cache_env):
@@ -245,7 +247,7 @@ def test_reload_preserves_chemistry():
     from frei_tpu_torch.chemistry.mocks import MockChemistry
 
     grid = Grid(Planet.from_hot_jupiter(), n_wl_bins=16, n_layers=4,
-                T_ref=2400.0)
+                T_ref=2400.0, device="cpu")
     stack = load_example_opacity(grid)
 
     class MarkerChem:
@@ -267,7 +269,7 @@ def test_reload_from_store_keeps_chemistry(cache_env):
     make = jetl.make_synthetic_store
     make(cache_env / "1H2-16O__syn.ftop", n_hr=20_000)
     grid = Grid(Planet.from_hot_jupiter(), n_wl_bins=16, n_layers=4,
-                T_ref=2400.0, dtype=torch.float64)
+                T_ref=2400.0, dtype=torch.float64, device="cpu")
     first = grid.load_opacities(path=str(cache_env / "*.ftop"))
     chem = grid.chemistry
     again = grid.load_opacities(path=str(cache_env / "*.ftop"),
@@ -354,7 +356,7 @@ def test_grid_load_opacities_matches_jax(cache_env, monkeypatch, groupies):
     jg = frei_tpu.Grid(frei_tpu.Planet.from_hot_jupiter(), n_wl_bins=32,
                        n_layers=6, T_ref=2400.0, dtype=jnp.float64)
     tg = Grid(Planet.from_hot_jupiter(), n_wl_bins=32, n_layers=6,
-              T_ref=2400.0, dtype=torch.float64)
+              T_ref=2400.0, dtype=torch.float64, device="cpu")
     js = jg.load_opacities(species=["H2O", "Na"], path=path,
                            groupies=groupies, engine="xla")
     monkeypatch.setenv("FREI_TPU_CACHE", str(cache_env / "cache-port"))
@@ -377,7 +379,7 @@ def test_grid_load_opacities_species_filter(cache_env):
     make(cache_env / "23Na__syn.ftop", isotopologue="23Na", n_hr=30_000,
          seed=9)
     grid = Grid(Planet.from_hot_jupiter(), n_wl_bins=32, n_layers=6,
-                T_ref=2400.0, dtype=torch.float64)
+                T_ref=2400.0, dtype=torch.float64, device="cpu")
     stack = grid.load_opacities(species=["H2O"],
                                 path=str(cache_env / "*.ftop"))
     assert stack.species == ("1H2-16O",)       # species filter applied
@@ -391,7 +393,8 @@ def test_grid_load_opacities_species_filter(cache_env):
 
 
 def test_emission_before_load_raises():
-    grid = Grid(Planet.from_hot_jupiter(), n_wl_bins=16, n_layers=4)
+    grid = Grid(Planet.from_hot_jupiter(), n_wl_bins=16, n_layers=4,
+                device="cpu")
     with pytest.raises(ValueError, match="load opacities"):
         grid.emission_spectrum()
     with pytest.raises(ValueError, match="load opacities"):

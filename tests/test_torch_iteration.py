@@ -191,7 +191,7 @@ def solver_setup():
     jg.load_opacities(opacities=j_fixture(jg, scale_factor=1.0,
                                           dtype=jnp.float64))
     tg = Grid(Planet.from_hot_jupiter(), n_wl_bins=24, n_layers=7,
-              T_ref=2400.0, dtype=torch.float64)
+              T_ref=2400.0, dtype=torch.float64, device="cpu")
     tg.load_opacities(opacities=convert.to_opacity_stack(jg.opacities))
     rng = np.random.RandomState(0)
     T = np.asarray(jg.init_temperatures)[None, :] * rng.uniform(
@@ -259,7 +259,8 @@ def test_loop_engine_goldens(dtype):
     """(e) The published goldens through ``emission_spectra`` on the
     loop engine, 500 bins x 30 layers."""
     dt = getattr(torch, dtype)
-    grid = Grid(Planet.from_hot_jupiter(), T_ref=2400.0, dtype=dt)
+    grid = Grid(Planet.from_hot_jupiter(), T_ref=2400.0, dtype=dt,
+                device="cpu")
     grid.load_opacities(opacities=load_example_opacity(
         grid, scale_factor=1.0, dtype=dt))
     T0 = np.asarray(grid.init_temperatures)[None, :]

@@ -29,7 +29,7 @@ def grids():
     jg = JGrid(JPlanet.from_hot_jupiter(), n_wl_bins=W, n_layers=L,
                T_ref=2400.0, dtype=jnp.float64)
     tg = Grid(Planet.from_hot_jupiter(), n_wl_bins=W, n_layers=L,
-              T_ref=2400.0, dtype=torch.float64)
+              T_ref=2400.0, dtype=torch.float64, device="cpu")
     return jg, tg
 
 
@@ -62,7 +62,8 @@ def _tables():
 
 def test_stack_interp_and_layer_tables():
     jst = jtab.make_opacity_stack(_tables(), dtype=jnp.float64)
-    tst = ttab.make_opacity_stack(_tables(), dtype=torch.float64)
+    tst = ttab.make_opacity_stack(_tables(), dtype=torch.float64,
+                                  device="cpu")
     np.testing.assert_array_equal(np.asarray(jst.values), tst.values.numpy())
     np.testing.assert_array_equal(np.asarray(jst.temps), tst.temps.numpy())
     rng = np.random.RandomState(2)
@@ -119,7 +120,7 @@ def test_single_temperature_stack():
     tabs = {"1H2-16O": (np.random.RandomState(4).rand(1, 3, W), [1500.0],
                         [1e-4, 1e-2, 1.0])}
     jst = jtab.make_opacity_stack(tabs, dtype=jnp.float64)
-    tst = ttab.make_opacity_stack(tabs, dtype=torch.float64)
+    tst = ttab.make_opacity_stack(tabs, dtype=torch.float64, device="cpu")
     P = np.array([1e2, 5e3, 1e6, 1e8])
     a = jtab.interp_tp(jst, jnp.full(4, 900.0), jnp.asarray(P))
     b = ttab.interp_tp(tst, torch.full((4,), 900.0, dtype=torch.float64),
@@ -192,7 +193,7 @@ def test_kappa_twin_matches_jax_and_pallas_interpret(n_p):
 
     tabs, temps, press, mmr, sig = _kappa_case(n_p)
     jst = jtab.make_opacity_stack(tabs, dtype=jnp.float64)
-    tst = ttab.make_opacity_stack(tabs, dtype=torch.float64)
+    tst = ttab.make_opacity_stack(tabs, dtype=torch.float64, device="cpu")
     jtab.set_interp_mode("gather")
     try:
         want, _ = jtab.kappa_from_stack(jst, jnp.asarray(mmr),
@@ -226,7 +227,7 @@ def test_interp_mode_switch():
     "cuda" demands a stack on a CUDA device; the JAX package's TPU
     formulations are refused with their counterpart named."""
     tabs, temps, press, mmr, sig = _kappa_case(4)
-    tst = ttab.make_opacity_stack(tabs, dtype=torch.float64)
+    tst = ttab.make_opacity_stack(tabs, dtype=torch.float64, device="cpu")
     args = (torch.tensor(mmr), torch.tensor(temps), torch.tensor(press),
             torch.tensor(sig))
     ref, _ = ttab.kappa_from_stack(tst, *args)

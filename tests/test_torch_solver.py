@@ -36,7 +36,7 @@ def setup():
     jg.load_opacities(opacities=j_fixture(jg, scale_factor=1.0,
                                           dtype=jnp.float64))
     tg = Grid(Planet.from_hot_jupiter(), n_wl_bins=W, n_layers=L,
-              T_ref=2400.0, dtype=torch.float64)
+              T_ref=2400.0, dtype=torch.float64, device="cpu")
     tg.load_opacities(opacities=convert.to_opacity_stack(jg.opacities))
     rng = np.random.RandomState(0)
     T = np.asarray(jg.init_temperatures)[None, :] * rng.uniform(

@@ -165,6 +165,69 @@ def test_emit_dtaus_output_matches_jax(setup, fused):
         assert torch.equal(x, y)
 
 
+@pytest.mark.parametrize("W, npt, threads", [
+    (1, 1, 32), (33, 1, 64), (256, 2, 128), (257, 4, 96), (500, 4, 128),
+    (1000, 8, 128), (2048, 8, 256)])
+def test_plan_block_shape(W, npt, threads):
+    """Wavelengths per thread: the smallest power of two up to 8 that
+    leaves at most 128 per block (256 at 8, up to W = 2048); threads: a
+    whole number of warps covering them."""
+    plan = sc_mod.plan_sweep(W, 30, 30, 4, True)
+    assert (plan.npt, plan.threads) == (npt, threads)
+    assert plan.threads * plan.npt >= W
+
+
+def test_plan_headline_and_layout():
+    """The headline sweep (W 500, L 30, K 30, float32, fused) stages the
+    stale flux row and two table rows one layer ahead; the bytes are the
+    kernel's layout, 16-byte aligned section by section."""
+    plan = sc_mod.plan_sweep(500, 30, 30, 4, True)
+    assert plan == sc_mod.SweepPlan(threads=128, npt=4, depth=1, rows=3,
+                                    smem=plan.smem)
+    a16 = lambda n: -(-n // 16) * 16  # noqa: E731
+    want = (a16(30 * 30 * 4) + a16(30 * 30 * 4) + a16(30 * 4)  # weights
+            + a16(30 * 4) + a16(29 * 4)                       # 1/T, dtf
+            + a16((3 * 29 + 1) * 4 * 4)                       # partials
+            + a16(2 * 3 * 512 * 4))                           # the ring
+    assert plan.smem == want
+    # the materialized form stages one kappa row and no weights
+    mat = sc_mod.plan_sweep(500, 30, 0, 4, False)
+    assert (mat.depth, mat.rows) == (1, 2)
+    assert mat.smem == (a16(30 * 4) + a16(29 * 4) + a16((3 * 29 + 1) * 4 * 4)
+                        + a16(2 * 2 * 512 * 4))
+
+
+@pytest.mark.parametrize("W, L, K, elem, fused", [
+    (2048, 30, 70, 8, True), (2048, 30, 0, 8, False), (1000, 30, 70, 8, True),
+    (500, 30, 30, 8, True), (2048, 3, 30, 4, True)])
+def test_plan_shrinks_to_fit(W, L, K, elem, fused):
+    """Wide float64 rows: the plan stages fewer kappa rows, then a
+    shallower ring, to stay under the shared-memory target, and every
+    plan fits the card's 227 KB."""
+    plan = sc_mod.plan_sweep(W, L, K, elem, fused)
+    assert plan.smem <= sc_mod.SMEM_TARGET or plan.depth == 0
+    assert plan.smem <= sc_mod.SMEM_LIMIT
+    assert plan.smem == sc_mod.sweep_smem_bytes(
+        fused, L, K, elem, plan.threads, plan.npt, plan.depth, plan.rows)
+    full = sc_mod.plan_sweep(W, L, K, elem, fused, depth=0)
+    assert (full.depth, full.rows) == (0, 1)
+
+
+def test_plan_options_and_refusal():
+    """The ring is 0 or 1 layers deep (depth 0 stages only the flux row);
+    other depths, weight rows too large for shared memory and rows past
+    2048 wavelengths are refused."""
+    p0 = sc_mod.plan_sweep(500, 30, 30, 4, True, depth=0)
+    assert (p0.depth, p0.rows, p0.npt, p0.threads) == (0, 1, 4, 128)
+    for depth in (-1, 2, 3):
+        with pytest.raises(ValueError, match="0 or 1 layers deep"):
+            sc_mod.plan_sweep(500, 30, 30, 4, True, depth=depth)
+    with pytest.raises(ValueError, match="weight rows"):
+        sc_mod.plan_sweep(500, 60, 400, 8, True)
+    with pytest.raises(ValueError, match="block shape"):
+        sc_mod.plan_sweep(2049, 30, 30, 4, True)
+
+
 def test_wrapper_counts_no_launch_on_cpu(setup):
     """On CPU tensors the wrappers run the plain twins: no launch."""
     s = setup
