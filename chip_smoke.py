@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py              # every phase (one card)
     python3 chip_smoke.py --sweeps     # build sweep.cu; phases 3 and 3d
+    python3 chip_smoke.py --iteration  # build iteration.cu; phases 3b and 3e
     python3 chip_smoke.py --ab-leg     # one leg of a parent/change pair
 
 Phases, one report line each, any failure raising (non-zero exit):
@@ -33,6 +34,12 @@ Phases, one report line each, any failure raising (non-zero exit):
    early; float32 at 8192 columns for 1 iteration); see
    :func:`hold_step` for how a step is held; each kernel's time against
    its twin's at the headline shape;
+3e. where an RC step's time goes: the iteration kernel against its
+   measurement variants (the arithmetic alone, a copy with the step's
+   loads and stores, the step without its serial phases, the ring at
+   depth 0) and the loop kernel with no step (the slab copy its first
+   step folds in), each with its share of the bytes bound; see
+   :func:`phase_iteration_variants`;
 3c. the opacity plane's kernels against their twins: the rebin kernel on
    a device-resident 64-row x 2e6-sample float32 slab into the run's 500
    bins, against the float64 twin (rtol 1e-6 plus 1e-6 of the largest
@@ -428,22 +435,44 @@ def phase_sweep_variants():
     return out
 
 
+def sweep_digest():
+    """sha256 of the sweep kernels' outputs on phase 3's float32 inputs
+    (fused and materialized opacity, every third column frozen): equal
+    digests on two checkouts mean bit-identical sweeps."""
+    import hashlib
+    from frei_tpu_torch.ops import sweep_cuda as S
+    grid = make_grid(torch.float32)
+    T, Fu, Fd, kaps, done, params = sweep_inputs(grid, N_COLUMNS)
+    sc = S.make_sweep_consts(grid._consts, params)
+    h = hashlib.sha256()
+    for wrap in (S.emit_kernel, S.absorb_kernel):
+        for kap in kaps.values():
+            for t in wrap(T, Fu, Fd, kap, sc, done):
+                h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
 def ab_leg():
     """One leg of a parent/change comparison, on whatever checkout holds
-    this file: each sweep kernel's time (phase 3's float32 timing) and
-    the headline on the "loop", "iteration" and "cuda" engines.  Calls
-    only wrappers every checkout of the port has.  Prints one JSON line."""
+    this file: each sweep kernel's time (phase 3's float32 timing) and a
+    digest of its outputs, the whole-iteration kernels' times (one RC
+    step, one 20-iteration loop) and the headline on the "loop",
+    "iteration" and "cuda" engines.  Calls only wrappers every checkout
+    of the port has.  Prints one JSON line."""
     from frei_tpu_torch.ops import iteration_cuda as IC
     from frei_tpu_torch.ops import sweep_cuda as S
     with ThreadPoolExecutor(2) as pool:
         list(pool.map(lambda m: m.build(), (S, IC)))
     recs = phase_parity(torch.float32, N_COLUMNS, 1e-4, 1e-5, 1e-7,
                         timing=True)
+    whole = whole_times(plain=False)
     head = phase_headline(("loop", "iteration", "cuda"), runs=5)
     print(json.dumps({"ab_leg": {
         "root": str(Path(__file__).resolve().parent.name),
         "ms": {k: r["ms_fused"] for k, r in recs.items()},
         "ms_materialized": {k: r["ms_materialized"] for k, r in recs.items()},
+        "sweep_sha256": sweep_digest(),
+        "whole_ms": {k: r["ms"] for k, r in whole.items()},
         "walls": {e: h["walls"] for e, h in head.items()}}}), flush=True)
 
 
@@ -542,6 +571,90 @@ def iteration_inputs(grid, n):
     return T, Fu, Fd, done, pack, params
 
 
+def scalars(params):
+    """Physics scalars as Python floats, as the solver passes them to the
+    whole-iteration kernels."""
+    return params._replace(g=float(params.g), m_bar=float(params.m_bar),
+                           alpha=float(params.alpha))
+
+
+def whole_times(plain):
+    """The whole-iteration kernels' times at the headline shape, float32,
+    no column frozen: one RC step of ``rc_iteration_kernel`` on phase 3's
+    random states, and a 20-iteration ``rc_loop_kernel`` from the
+    solver's state (bench.py's columns, zero fluxes); with ``plain``
+    their twins' too.  Calls only wrappers every checkout of the port
+    has.  Returns {kernel: {"ms", "bytes"[, "plain_ms"]}}."""
+    from frei_tpu_torch.ops import iteration_cuda as IC
+    grid = make_grid(torch.float32)
+    T, Fu, Fd, done, pack, params = iteration_inputs(grid, N_COLUMNS)
+    scal = scalars(params)
+    live = torch.zeros_like(done)   # the main path's inputs
+    it = {"ms": time_ms(lambda: IC.rc_iteration_kernel(
+        T, Fu, Fd, live, pack, scal), 10), "bytes": rc_bytes(Fu, pack, 1)}
+    if plain:
+        it["plain_ms"] = time_ms(lambda: IC.rc_iteration_plain(
+            T, Fu, Fd, live, pack, scal), 2)
+    log(f"[timing] iteration kernel {it['ms']:.4f} ms"
+        + (f", plain twin {it['plain_ms']:.4f} ms" if plain else "")
+        + f" per RC step (B={N_COLUMNS}, L={N_LAYERS}, W={N_BINS}, "
+        f"float32, no column frozen)")
+    del Fu, Fd
+    T0 = columns(grid, N_COLUMNS)
+    Fz = torch.zeros((N_COLUMNS, N_LAYERS, N_BINS), dtype=torch.float32,
+                     device=grid.device)
+    loop = {"ms": time_ms(lambda: IC.rc_loop_kernel(
+        T0, Fz, Fz, pack, scal, N_ITERS, 10 ** 6, 0.0), 3),
+        "bytes": rc_bytes(Fz, pack, N_ITERS)}
+    if plain:
+        loop["plain_ms"] = time_ms(lambda: IC.rc_loop_plain(
+            T0, Fz, Fz, pack, scal, N_ITERS, 10 ** 6, 0.0), 1)
+    log(f"[timing] loop kernel {loop['ms']:.4f} ms"
+        + (f", plain twin {loop['plain_ms']:.4f} ms" if plain else "")
+        + f" per {N_ITERS}-iteration loop (B={N_COLUMNS}, L={N_LAYERS}, "
+        f"W={N_BINS}, float32)")
+    return {"iteration": it, "loop": loop}
+
+
+def phase_iteration_variants():
+    """Where an RC step's time goes, float32 at the headline shape on the
+    main path's inputs (no column frozen): the iteration kernel against
+    its variants (csrc/iteration.cu): the arithmetic, quadratures and
+    serial phases alone, a copy with the step's loads and stores, the step
+    without its serial phases, and the ring at depth 0; then the loop
+    kernel with no step, the slab copy its first step folds in.  The
+    "step" variant must give the wrapper's bits.  Returns {label: ms}."""
+    from frei_tpu_torch.ops import iteration_cuda as IC
+    grid = make_grid(torch.float32)
+    T, Fu, Fd, done, pack, params = iteration_inputs(grid, N_COLUMNS)
+    scal = scalars(params)
+    live = torch.zeros_like(done)
+    S_ = pack.k_tab.shape[1]
+    tb = rc_bytes(Fu, pack, 1) / PEAK_BYTES * 1e3
+    got = IC.rc_iteration_variant("step", T, Fu, Fd, live, pack, scal)
+    want = IC.rc_iteration_kernel(T, Fu, Fd, live, pack, scal)
+    assert all(torch.equal(x, y) for x, y in zip(got, want)), \
+        "the step variant differs from the iteration kernel"
+    del got, want
+    out = {}
+    for variant, kw in (("step", {}), ("arith", {}), ("copy", {}),
+                        ("no_serial", {}), ("step", {"depth": 0}),
+                        ("copy", {"depth": 0})):
+        ms = time_ms(lambda v=variant, kw=kw: IC.rc_iteration_variant(
+            v, T, Fu, Fd, live, pack, scal, **kw), 10)
+        label = variant + "".join(f" {k}={v}" for k, v in kw.items())
+        plan = IC.plan_iteration(N_BINS, N_LAYERS, S_, 4, **kw)
+        out[label] = ms
+        log(f"[variants] iteration {label:12s} {ms:.4f} ms, {tb / ms:.3f} "
+            f"of the bytes bound ({tb:.4f} ms); plan {plan._asdict()}")
+    Fz = torch.zeros_like(Fu)
+    ms = time_ms(lambda: IC.rc_loop_kernel(T, Fz, Fz, pack, scal, 0, 10 ** 6,
+                                           0.0), 10)
+    out["loop n_timesteps=0"] = ms
+    log(f"[variants] loop with no step (the slab copy): {ms:.4f} ms")
+    return out
+
+
 def phase_iteration_parity():
     """The whole-iteration kernels against their twins; returns
     per-kernel records with the float32 headline-shape times."""
@@ -568,20 +681,6 @@ def phase_iteration_parity():
                            atol_frac)
         it_rec["max_abs_err"] = max(it_rec["max_abs_err"], err)
         it_rec["err_over_tol"] = max(it_rec["err_over_tol"], q)
-        if dtype == torch.float32:
-            scal = params._replace(g=float(params.g),
-                                   m_bar=float(params.m_bar),
-                                   alpha=float(params.alpha))
-            live = torch.zeros_like(done)   # the main path's inputs
-            it_rec["ms"] = time_ms(lambda: IC.rc_iteration_kernel(
-                T, Fu, Fd, live, pack, scal), 10)
-            it_rec["plain_ms"] = time_ms(lambda: IC.rc_iteration_plain(
-                T, Fu, Fd, live, pack, scal), 2)
-            it_rec["bytes"] = rc_bytes(Fu, pack, 1)
-            it_rec["flops"] = 2 * SWEEP_FLOPS * n * (N_LAYERS - 1) * N_BINS
-            log(f"[timing] iteration kernel {it_rec['ms']:.4f} ms, plain "
-                f"twin {it_rec['plain_ms']:.4f} ms per RC step (B={n}, "
-                f"L={N_LAYERS}, W={N_BINS}, {dtype}, no column frozen)")
 
     # the whole loop, float64: 64 columns, 3 iterations from the solver's
     # state (zero fluxes), a threshold between two columns' second
@@ -653,26 +752,12 @@ def phase_iteration_parity():
     rec["max_abs_err"] = max(rec["max_abs_err"], err)
     rec["err_over_tol"] = max(rec["err_over_tol"], q)
 
-    # times at the headline's horizon, from the solver's state
-    g32 = make_grid(torch.float32)
-    T = columns(g32, N_COLUMNS)
-    Fz = torch.zeros((N_COLUMNS, N_LAYERS, N_BINS), dtype=torch.float32,
-                     device=g32.device)
-    _, params = solver_args(g32)[:2]
-    pack = IC.make_iteration_pack(g32._consts, params,
-                                  *g32._kappa_fn.iteration_hook)
-    scal = params._replace(g=float(params.g), m_bar=float(params.m_bar),
-                           alpha=float(params.alpha))
-    rec["ms"] = time_ms(lambda: IC.rc_loop_kernel(
-        T, Fz, Fz, pack, scal, N_ITERS, 10 ** 6, 0.0), 3)
-    rec["plain_ms"] = time_ms(lambda: IC.rc_loop_plain(
-        T, Fz, Fz, pack, scal, N_ITERS, 10 ** 6, 0.0), 1)
-    rec["bytes"] = rc_bytes(Fz, pack, N_ITERS)
-    rec["flops"] = (2 * N_ITERS * SWEEP_FLOPS * N_COLUMNS * (N_LAYERS - 1)
-                    * N_BINS)
-    log(f"[timing] loop kernel {rec['ms']:.4f} ms, plain twin "
-        f"{rec['plain_ms']:.4f} ms per {N_ITERS}-iteration loop "
-        f"(B={N_COLUMNS}, L={N_LAYERS}, W={N_BINS}, float32)")
+    # times at the headline shape
+    times = whole_times(plain=True)
+    it_rec.update(times["iteration"])
+    rec.update(times["loop"])
+    it_rec["flops"] = 2 * SWEEP_FLOPS * N_COLUMNS * (N_LAYERS - 1) * N_BINS
+    rec["flops"] = N_ITERS * it_rec["flops"]
     return {"iteration": it_rec, "loop": rec}
 
 
@@ -1157,6 +1242,14 @@ def main(argv):
                      timing=True)
         phase_sweep_variants()
         return
+    if argv == ["--iteration"]:
+        # the whole-iteration kernels alone: build, parity, times and
+        # variants
+        log("\n".join(f"[build] {line}"
+                      for line in ptxas_summary(IC.build())))
+        phase_iteration_parity()
+        phase_iteration_variants()
+        return
     if argv:
         sys.exit(f"chip_smoke: unknown arguments {argv}")
 
@@ -1183,6 +1276,8 @@ def main(argv):
 
     # phase 3b: the whole-iteration kernels against their twins
     whole = phase_iteration_parity()
+    # phase 3e: where an RC step's time goes (the kernel's variants)
+    phase_iteration_variants()
     # phase 3c: the opacity plane's kernels against their twins
     opac = phase_opacity_parity(make_grid(torch.float32).wl_bins)
 

@@ -42,11 +42,12 @@ def _inputs(source: Path) -> list:
     return [source, *sorted(source.parent.glob("*.cuh"))]
 
 
-def build_library(source: Path, lib: Path) -> str:
+def build_library(source: Path, lib: Path, flags=()) -> str:
     """Compile ``source`` into ``lib`` unless ``lib`` is newer than the
-    source and every shared header.  Returns the compiler's output
-    (ptxas register and shared-memory report), or an empty string when
-    nothing was built.
+    source and every shared header; ``flags`` are extra nvcc arguments
+    (e.g. ``-D`` settings of a trial build).  Returns the compiler's
+    output (ptxas register and shared-memory report), or an empty string
+    when nothing was built.
 
     The library is compiled to a per-process temporary name and moved
     into place, so concurrent processes never load a partial file."""
@@ -55,8 +56,8 @@ def build_library(source: Path, lib: Path) -> str:
         return ""
     lib.parent.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f".{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(source.parent), "-o", str(tmp),
-           str(source)]
+    cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-I", str(source.parent), "-o",
+           str(tmp), str(source)]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:

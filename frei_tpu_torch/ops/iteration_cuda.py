@@ -17,7 +17,15 @@ Each form has
   launches the kernel for CUDA tensors, raises if it cannot, uses the
   plain twin for CPU tensors, and counts its launches in ``.launches``;
 * a plain PyTorch twin (:func:`rc_iteration_plain`,
-  :func:`rc_loop_plain`) with the same signature and outputs.
+  :func:`rc_loop_plain`) with the same signature and outputs;
+* a launch plan per kernel (:func:`plan_iteration`): threads,
+  wavelengths per thread, the depth of the kernels' shared-memory ring
+  (0 or 1) and the rows it stages, and the shared-memory bytes, which
+  the kernels check against their own layout.
+
+:func:`rc_iteration_variant` launches the iteration kernel's
+measurement variants (see ``VARIANTS``) and the ring at depth 0; it is
+for timing on the card and is not counted in ``.launches``.
 """
 
 from __future__ import annotations
@@ -32,16 +40,28 @@ from .. import constants as const
 from ..rt.physics import PhysicsParams
 from ..rt.sweeps import top_pressure
 from .cuda_build import BUILD_DIR, CSRC, build_library, load_library
-from .sweep_cuda import (SweepConsts, absorb_epilogue, absorb_plain,
+from .sweep_cuda import (SMEM_LIMIT, SMEM_TARGET, SweepConsts, _align16,
+                         _block_shape, absorb_epilogue, absorb_plain,
                          emit_epilogue, emit_plain, make_sweep_consts)
 
 __all__ = ["IterationPack", "make_iteration_pack", "rc_iteration_plain",
            "rc_loop_plain", "rc_iteration_kernel", "rc_loop_kernel",
-           "build"]
+           "build", "IterationPlan", "plan_iteration",
+           "iteration_smem_bytes", "rc_iteration_variant", "VARIANTS"]
 
 _SOURCE = CSRC / "iteration.cu"
 _LIB_PATH = BUILD_DIR / "libfrei_iteration.so"
 _LN10 = 2.302585092994046  # ln(10)
+#: kernel variants of csrc/iteration.cu's iteration kernel (the solver
+#: launches only "step"): the arithmetic, quadratures and serial phases
+#: alone ("arith": no ring, no slab or table loads, no slab stores); the
+#: step's loads and stores with its weights ("copy": no coupler
+#: arithmetic, quadratures or temperature updates); the step without its
+#: serial phases ("no_serial": weights without search or exp, no
+#: temperature updates)
+VARIANTS = {"step": 0, "arith": 1, "copy": 2, "no_serial": 4}
+#: per-layer vectors of the kernels' working type in shared memory
+_LAYER_VECS = 9
 
 
 class IterationPack(NamedTuple):
@@ -255,7 +275,8 @@ class _IterArgs(ctypes.Structure):
             "convergence_dT")]
         + [(name, ctypes.c_int) for name in (
             "B", "L", "W", "S", "nT", "nTc", "n_timesteps",
-            "n_zero_crossings")])
+            "n_zero_crossings", "threads", "npt", "depth", "rows", "smem",
+            "mode", "wpad", "whole")])
 
 
 _lib = None
@@ -270,16 +291,81 @@ def build() -> str:
     return build_library(_SOURCE, _LIB_PATH)
 
 
+#: the library's launchers and their ctypes argument types
+SIGNATURES = {name: [ctypes.POINTER(_IterArgs), ctypes.c_void_p]
+              for name in ("frei_rc_iteration_f32", "frei_rc_iteration_f64",
+                           "frei_rc_loop_f32", "frei_rc_loop_f64")}
+
+
 def _library():
     global _lib
     with _lib_lock:
         if _lib is None:
-            sig = [ctypes.POINTER(_IterArgs), ctypes.c_void_p]
-            _lib = load_library(_SOURCE, _LIB_PATH, {
-                name: sig for name in (
-                    "frei_rc_iteration_f32", "frei_rc_iteration_f64",
-                    "frei_rc_loop_f32", "frei_rc_loop_f64")})
+            _lib = load_library(_SOURCE, _LIB_PATH, SIGNATURES)
     return _lib
+
+
+class IterationPlan(NamedTuple):
+    """How the iteration kernels launch: one block of ``threads`` per
+    column, each thread owning ``npt`` contiguous wavelengths; a
+    shared-memory ring ``depth`` (0 or 1) layers ahead of the layer being
+    computed, each slot holding ``rows`` rows (the stale flux row, then the
+    two table rows of each staged species); ``smem`` bytes of dynamic
+    shared memory in all."""
+
+    threads: int
+    npt: int
+    depth: int
+    rows: int
+    smem: int
+
+
+def iteration_smem_bytes(L: int, S: int, elem: int, threads: int, npt: int,
+                         depth: int, rows: int) -> int:
+    """Dynamic shared memory of one iteration-kernel block, the layout of
+    ``csrc/iteration.cu`` (``layout``): the per-warp quadrature partials,
+    the block quadratures, the per-layer vectors, both dtf orderings, the
+    (L, S) mixing ratios, three int vectors and the ring of ``depth + 1``
+    slots of ``rows`` rows of ``threads * npt``."""
+    n = L - 1
+    return (_align16((3 * n + 1) * (threads // 32) * elem)
+            + _align16(4 * n * elem) + _align16(_LAYER_VECS * L * elem)
+            + _align16(2 * n * elem) + _align16(L * S * elem)
+            + _align16(3 * L * 4)
+            + _align16((depth + 1) * rows * threads * npt * elem))
+
+
+def plan_iteration(W: int, L: int, S: int, elem: int, depth: int = 1,
+                   loop: bool = False) -> IterationPlan:
+    """The launch plan of the iteration kernel (or with ``loop`` the loop
+    kernel) over (B, L, W) slabs of ``elem``-byte values with ``S``
+    species.
+
+    The iteration kernel's block shape is the sweeps'
+    (``sweep_cuda._block_shape``); the loop kernel's allows 256 threads
+    (2 wavelengths per thread at W = 500: at 4 its step spilled under the
+    register cap and ran slower, PERF.md §5). The ring stages the stale flux row and both table rows of every species
+    one layer ahead (``depth`` 1, two slots). Where that exceeds
+    ``SMEM_TARGET`` it stages fewer species (the rest come from L2), and
+    failing that each layer stages only its own flux row (depth 0, one
+    slot). ``depth=0`` asks for that plan outright (a measurement of what
+    the ring gains)."""
+    if depth not in (0, 1):
+        raise ValueError(f"the iteration kernels' ring is 0 or 1 layers "
+                         f"deep, got {depth}")
+    npt, threads = _block_shape(W, 256 if loop else 128)
+
+    def size(d, rows):
+        return iteration_smem_bytes(L, S, elem, threads, npt, d, rows)
+
+    if size(0, 1) > SMEM_LIMIT:
+        raise ValueError(f"{L} layers x {S} species exceed the iteration "
+                         "kernels' shared memory")
+    for ss in range(S, -1, -1):
+        if depth and size(1, 1 + 2 * ss) <= SMEM_TARGET:
+            return IterationPlan(threads, npt, 1, 1 + 2 * ss,
+                                 size(1, 1 + 2 * ss))
+    return IterationPlan(threads, npt, 0, 1, size(0, 1))
 
 
 def _scalar(x) -> float:
@@ -329,10 +415,13 @@ def _check(temps, F_up, F_down, pack: IterationPack):
     return B, L, W, S, nT, nTc
 
 
-def _args(temps, F_up, F_down, pack, params, dims, sums, **extra):
+def _args(temps, F_up, F_down, pack, params, dims, sums, depth=1,
+          loop=False, **extra):
     B, L, W, S, nT, nTc = dims
     sc = pack.sc
+    plan = plan_iteration(W, L, S, F_up.element_size(), depth, loop)
     return _IterArgs(
+        **plan._asdict(),
         sums=None if sums is None else sums.data_ptr(),
         temps=temps.data_ptr(), F_up=F_up.data_ptr(),
         F_down=F_down.data_ptr(), k_tgrid=pack.k_tgrid.data_ptr(),
@@ -359,18 +448,12 @@ def _launch(name, device, dtype, args):
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
-def rc_iteration_kernel(temps, F_up, F_down, done, pack: IterationPack,
-                        params: PhysicsParams, with_sums=False):
-    """One RC step: the CUDA kernel for CUDA tensors,
-    :func:`rc_iteration_plain` for CPU tensors.  ``done`` is a (B,) bool
-    freeze mask.  Returns ``(T1, F_up, F_down, T2, dT2)``, plus the
-    quadratures diagnostic with ``with_sums``.  Physics scalars given as
-    CUDA tensors cost a host sync; pass Python floats on the hot path."""
-    if F_up.device.type == "cpu":
-        return rc_iteration_plain(temps, F_up, F_down, done, pack, params,
-                                  with_sums)
-    if not F_up.is_cuda:
-        raise RuntimeError(f"no iteration kernel for device {F_up.device}")
+def _iteration(temps, F_up, F_down, done, pack, params, with_sums,
+               **plan_kw):
+    """Check the arguments, allocate the outputs and launch the iteration
+    kernel on the current stream (no synchronization); ``plan_kw`` (a
+    ``mode`` of ``VARIANTS``, ``depth`` of :func:`plan_iteration`)
+    selects measurement variants."""
     dims = _check(temps, F_up, F_down, pack)
     B, L = dims[:2]
     if (done.dtype != torch.bool or done.device != F_up.device
@@ -383,10 +466,40 @@ def rc_iteration_kernel(temps, F_up, F_down, done, pack: IterationPack,
     args = _args(temps, F_up, F_down, pack, params, dims, sums,
                  done=done.data_ptr(), F_up_out=Fu.data_ptr(),
                  F_down_out=Fd.data_ptr(), T1=T1.data_ptr(),
-                 T2=T2.data_ptr(), dT2=dT2.data_ptr())
+                 T2=T2.data_ptr(), dT2=dT2.data_ptr(), **plan_kw)
     _launch("iteration", F_up.device, F_up.dtype, args)
-    rc_iteration_kernel.launches += 1
     return (T1, Fu, Fd, T2, dT2) + ((sums,) if with_sums else ())
+
+
+def rc_iteration_kernel(temps, F_up, F_down, done, pack: IterationPack,
+                        params: PhysicsParams, with_sums=False):
+    """One RC step: the CUDA kernel for CUDA tensors,
+    :func:`rc_iteration_plain` for CPU tensors.  ``done`` is a (B,) bool
+    freeze mask.  Returns ``(T1, F_up, F_down, T2, dT2)``, plus the
+    quadratures diagnostic with ``with_sums``.  Physics scalars given as
+    CUDA tensors cost a host sync; pass Python floats on the hot path."""
+    if F_up.device.type == "cpu":
+        return rc_iteration_plain(temps, F_up, F_down, done, pack, params,
+                                  with_sums)
+    if not F_up.is_cuda:
+        raise RuntimeError(f"no iteration kernel for device {F_up.device}")
+    out = _iteration(temps, F_up, F_down, done, pack, params, with_sums)
+    rc_iteration_kernel.launches += 1
+    return out
+
+
+def rc_iteration_variant(variant: str, temps, F_up, F_down, done,
+                         pack: IterationPack, params: PhysicsParams,
+                         depth: int = 1):
+    """One launch of a variant of the iteration kernel on CUDA tensors,
+    for timing: ``variant`` is a key of ``VARIANTS`` and ``depth`` that
+    of :func:`plan_iteration` (0: no ring ahead).  The variants other
+    than "step" exist in float32 at 4 wavelengths per thread
+    (256 < W <= 512).  Not counted in the wrappers' launches."""
+    if not F_up.is_cuda:
+        raise RuntimeError("iteration variants run only on a CUDA device")
+    return _iteration(temps, F_up, F_down, done, pack, params, False,
+                      mode=VARIANTS[variant], depth=depth)
 
 
 def rc_loop_kernel(temps, F_up, F_down, pack: IterationPack,
@@ -413,7 +526,7 @@ def rc_loop_kernel(temps, F_up, F_down, pack: IterationPack,
     n_iters = torch.empty((B,), dtype=torch.int32, device=temps.device)
     conv = torch.empty((B, L), dtype=torch.bool, device=temps.device)
     sums = temps.new_empty((B, 2, 4, L - 1)) if with_sums else None
-    args = _args(temps, F_up, F_down, pack, params, dims, sums,
+    args = _args(temps, F_up, F_down, pack, params, dims, sums, loop=True,
                  F_up_out=Fu.data_ptr(), F_down_out=Fd.data_ptr(),
                  temps_out=tout.data_ptr(), hist=hist.data_ptr(),
                  max_dT=maxdt.data_ptr(), n_iters=n_iters.data_ptr(),

@@ -279,18 +279,18 @@ def sweep_smem_bytes(fused: bool, L: int, K: int, elem: int, threads: int,
             + _align16((depth + 1) * rows * threads * npt * elem))
 
 
-def _block_shape(W: int):
+def _block_shape(W: int, most: int = 128):
     """Wavelengths per thread and threads per block (a whole number of
     warps).  Wavelengths per thread are the smallest power of two up to 8
-    that leaves at most 128 threads: four independent layer chains per
-    thread in small blocks hide latency best (PERF.md §6).  The kernels
-    take at most 128 threads up to 4 wavelengths per thread and 256 at
-    8, so W <= 2048."""
+    that leaves at most ``most`` threads: for the sweeps 128, four
+    independent layer chains per thread in small blocks hide latency best
+    (PERF.md §6).  The kernels take at most ``most`` threads up to 4
+    wavelengths per thread and 256 at 8, so W <= 2048."""
     npt = 1
-    while -(-W // npt) > 128 and npt < 8:
+    while -(-W // npt) > most and npt < 8:
         npt *= 2
     per = -(-W // npt)
-    if per > (128 if npt <= 4 else 256):
+    if per > (most if npt <= 4 else 256):
         raise ValueError(f"no block shape for W={W}: more than 2048 "
                          "wavelengths")
     return npt, (per + 31) // 32 * 32

@@ -221,13 +221,16 @@ def test_kernel_rejects_bad_arguments():
 # --------------------------------------------------------------------------
 
 class _TableChemistry:
-    """Seeded temperature-dependent ln-MMR tables (L, 6, 1) on a log10 T
+    """Seeded temperature-dependent ln-MMR tables (L, 6, S) on a log10 T
     grid narrower than the columns' temperatures (both clip ends)."""
+
+    def __init__(self, L=L, S=1):
+        self.L, self.S = L, S
 
     def layer_ln_mmr_tables(self, pressures_cgs):
         rng = np.random.RandomState(7)
         return (np.linspace(3.0, 3.4, 6),
-                np.log(1e-3 * rng.uniform(0.5, 2.0, (L, 6, 1))))
+                np.log(1e-3 * rng.uniform(0.5, 2.0, (self.L, 6, self.S))))
 
 
 def _iteration_inputs(dtype, dev):
@@ -241,6 +244,60 @@ def _iteration_inputs(dtype, dev):
     T = T.clone()
     T[4] *= 1.5      # hot layers past the kappa T grid: zero-filled
     return pack, params, T, Fu, Fd, done
+
+
+def _iteration_case(dtype, dev, B_, L_, W_, S_, frozen):
+    """Seeded iteration inputs at any shape, independent of the grid: a
+    T(P) profile x U(0.9, 1.1) per column (the hottest bottom layers past
+    the kappa T grid: zero-filled), random flux states, positive layer
+    tables of S_ species on 8 temperatures, the seeded chemistry tables,
+    and ``frozen`` columns ("none", "some", "all")."""
+    from frei_tpu_torch.ops import iteration_cuda as IC
+    rng = np.random.RandomState(B_ * 1000 + L_ * 10 + W_ + S_)
+    consts = _Consts(L_, W_, dtype, dev, rng)
+    params = PhysicsParams(*(torch.as_tensor(x, dtype=dtype, device=dev)
+                             for x in (2478.0, 2.3 * 1.6605e-24, 0.1)),
+                           n_dof=5)
+    nT = 8
+    k_tgrid = np.linspace(800.0, 4000.0, nT)
+    k_tab = rng.uniform(0.1, 3.0, (L_, S_ * nT, W_)) * 10.0 ** rng.uniform(
+        -2, 1, (L_, 1, W_))
+    pack = IC.make_iteration_pack(
+        consts, params, torch.as_tensor(k_tgrid, dtype=dtype, device=dev),
+        torch.as_tensor(k_tab, dtype=dtype, device=dev),
+        _TableChemistry(L_, S_))
+    prof = 2400.0 * np.geomspace(1.6, 0.6, L_)
+    T = prof[None, :] * rng.uniform(0.9, 1.1, (B_, 1))
+    Fu, Fd = (rng.rand(B_, L_, W_) * 1e13 for _ in range(2))
+    done = {"none": np.zeros(B_, bool), "all": np.ones(B_, bool),
+            "some": np.arange(B_) % 3 == 1}[frozen]
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=dev).contiguous()
+    return (pack, params, t(T), t(Fu), t(Fd),
+            torch.as_tensor(done, device=dev))
+
+
+# (B, L, W, S, frozen columns): every NPT (W 1 .. 2048), rows that are not
+# a multiple of 16 bytes (W 1, 33, 513), L = 3 and 30, one and two
+# species, and the ring's plans from the flux row only (W 2048) to every
+# species staged
+_ITERATION_CASES = {
+    "B5-L7-W300-S1-grid": None,           # the grid fixture (below)
+    "B1-L3-W1-S1-none": (1, 3, 1, 1, "none"),
+    "B4-L30-W33-S2-all": (4, 30, 33, 2, "all"),
+    "B6-L30-W500-S2-some": (6, 30, 500, 2, "some"),
+    "B3-L3-W512-S1-some": (3, 3, 512, 1, "some"),
+    "B2-L30-W513-S1-none": (2, 30, 513, 1, "none"),
+    "B3-L30-W2048-S2-some": (3, 30, 2048, 2, "some"),
+    "B2-L30-W500-S1-none": (2, 30, 500, 1, "none"),
+}
+
+
+def _iteration_case_inputs(case, dtype, dev):
+    if _ITERATION_CASES[case] is None:
+        return _iteration_inputs(dtype, dev)
+    return _iteration_case(dtype, dev, *_ITERATION_CASES[case])
 
 
 def _hold_step(got, T, Fu, Fd, done, pack, params, rtol, atol, t_rtol):
@@ -275,14 +332,18 @@ _TOLS = {"float64": (1e-10, 1e-13, 1e-10), "float32": (1e-4, 1e-7, 1e-5)}
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", list(_ITERATION_CASES))
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
-def test_iteration_kernel_matches_plain_twin(dtype):
+def test_iteration_kernel_matches_plain_twin(dtype, case):
+    """One RC step against the twin's arithmetic (``_hold_step``), frozen
+    columns' slabs bit-identical to the inputs, identical bits on a
+    repeated launch and without the quadratures diagnostic."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the iteration kernels run only "
                     "on the card")
     from frei_tpu_torch.ops import iteration_cuda as IC
-    pack, params, T, Fu, Fd, done = _iteration_inputs(getattr(torch, dtype),
-                                                      torch.device("cuda"))
+    pack, params, T, Fu, Fd, done = _iteration_case_inputs(
+        case, getattr(torch, dtype), torch.device("cuda"))
     n0 = IC.rc_iteration_kernel.launches
     got = IC.rc_iteration_kernel(T, Fu, Fd, done, pack, params,
                                  with_sums=True)
@@ -300,14 +361,20 @@ def test_iteration_kernel_matches_plain_twin(dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", list(_ITERATION_CASES))
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
-def test_loop_kernel_matches_plain_twin(dtype):
+def test_loop_kernel_matches_plain_twin(dtype, case):
+    """One iteration of the loop held as the iteration kernel's step; in
+    float64 on the grid fixture, three iterations from zero fluxes with a
+    threshold between two columns' second-iteration max|dT|, so some
+    columns freeze early."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the iteration kernels run only "
                     "on the card")
     from frei_tpu_torch.ops import iteration_cuda as IC
     dt = getattr(torch, dtype)
-    pack, params, T, Fu, Fd, _ = _iteration_inputs(dt, torch.device("cuda"))
+    pack, params, T, Fu, Fd, _ = _iteration_case_inputs(
+        case, dt, torch.device("cuda"))
     # one iteration: a step held as the iteration kernel's
     n0 = IC.rc_loop_kernel.launches
     tout, fu, fd, hist, maxdt, n_it, conv, sums = IC.rc_loop_kernel(
@@ -317,27 +384,55 @@ def test_loop_kernel_matches_plain_twin(dtype):
     assert torch.equal(tout, hist[:, 1]) and (n_it == 1).all()
     _hold_step((hist[:, 0], fu, fd, tout, None, sums), T, Fu, Fd, None,
                pack, params, *_TOLS[dtype])
-    if dtype == "float32":
+    # no step: the state is the inputs
+    got0 = IC.rc_loop_kernel(T, Fu, Fd, pack, params, 0, 10 ** 6, 0.0)
+    assert torch.equal(got0[0], T) and torch.equal(got0[1], Fu) \
+        and torch.equal(got0[2], Fd) and (got0[5] == 0).all()
+    if dtype == "float32" or _ITERATION_CASES[case] is not None:
         return
-    # float64: three iterations from zero fluxes, a threshold between
-    # two columns' second-iteration max|dT|, so some columns freeze early
+    _hold_early_convergence(T, Fu, pack, params, 3, hold_state=True)
+
+
+def _hold_early_convergence(T, Fu, pack, params, n_steps, hold_state):
+    """``n_steps`` iterations from zero fluxes with a threshold between two
+    columns' second-iteration max|dT|: n_iters, the converged flags and
+    the history mask exact against the twin, identical bits on a repeated
+    launch, and with ``hold_state`` the state at float64 tolerances (over
+    several iterations the optically thin top layers' updates amplify
+    the summation order, so a trajectory is held step by step in
+    ``chip_smoke.py`` phase 3b; here only where it is known to hold)."""
+    from frei_tpu_torch.ops import iteration_cuda as IC
     Fz = torch.zeros_like(Fu)
-    probe = IC.rc_loop_plain(T, Fz, Fz, pack, params, 3, 10 ** 6, 0.0)
+    probe = IC.rc_loop_plain(T, Fz, Fz, pack, params, n_steps, 10 ** 6, 0.0)
     v = torch.sort(probe[4][:, 1]).values
     cdT = float(0.5 * (v[1] + v[2]))
-    got = IC.rc_loop_kernel(T, Fz, Fz, pack, params, 3, 2, cdT)
-    ref = IC.rc_loop_plain(T, Fz, Fz, pack, params, 3, 2, cdT)
-    assert ref[5].min() < 3
+    got = IC.rc_loop_kernel(T, Fz, Fz, pack, params, n_steps, 2, cdT)
+    ref = IC.rc_loop_plain(T, Fz, Fz, pack, params, n_steps, 2, cdT)
+    assert ref[5].min() < n_steps
     assert torch.equal(got[5], ref[5]) and torch.equal(got[6], ref[6])
     assert torch.equal(got[3] != 0, ref[3] != 0)
+    assert all(bool(torch.isfinite(x).all()) for x in got[:5])
     for name, a, b in zip(["temps", "F_up", "F_down", "hist", "max_dT"],
-                          got, ref):
+                          got if hold_state else (), ref):
         a, b = a.cpu().numpy(), b.cpu().numpy()
         np.testing.assert_allclose(a, b, rtol=1e-10,
                                    atol=1e-13 * float(np.abs(b).max()),
                                    err_msg=name)
-    again = IC.rc_loop_kernel(T, Fz, Fz, pack, params, 3, 2, cdT)
+    again = IC.rc_loop_kernel(T, Fz, Fz, pack, params, n_steps, 2, cdT)
     assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_loop_kernel_converges_early_at_the_new_layout():
+    """The early-convergence case at 500 bins, 30 layers, two species and
+    six columns in float64 (4 wavelengths per thread, two species
+    staged): counters, flags and history mask exact against the twin."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the iteration kernels run only "
+                    "on the card")
+    pack, params, T, Fu, _, _ = _iteration_case(
+        torch.float64, torch.device("cuda"), 6, 30, 500, 2, "none")
+    _hold_early_convergence(T, Fu, pack, params, 4, hold_state=False)
 
 
 @pytest.mark.cuda
