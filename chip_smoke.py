@@ -4,7 +4,9 @@
     python3 chip_smoke.py              # every phase (one card)
     python3 chip_smoke.py --sweeps     # build sweep.cu; phases 3 and 3d
     python3 chip_smoke.py --iteration  # build iteration.cu; phases 3b and 3e
+    python3 chip_smoke.py --kappa      # build kappa.cu; phase 3c's kappa part
     python3 chip_smoke.py --ab-leg     # one leg of a parent/change pair
+    python3 chip_smoke.py --ab-leg kappa   # the same, the kappa lookup alone
 
 Phases, one report line each, any failure raising (non-zero exit):
 
@@ -44,9 +46,17 @@ Phases, one report line each, any failure raising (non-zero exit):
    a device-resident 64-row x 2e6-sample float32 slab into the run's 500
    bins, against the float64 twin (rtol 1e-6 plus 1e-6 of the largest
    value) and the native host engine, plus ragged sizes; the kappa
-   lookup kernel in float64 at 64 columns (rtol 1e-10) and in float32
-   at 8192 columns x 30 layers x 500 bins (rtol 1e-5 plus 1e-7 of the
-   largest value), some points outside the hull; each kernel's time
+   lookup kernel (:func:`phase_kappa`) in float64 at 64 columns (rtol
+   1e-10) and in float32 at 8192 columns x 30 layers x 500 bins (rtol
+   1e-5 plus 1e-7 of the largest value), some points outside the hull,
+   and in the cases of :func:`kappa_case` (every point in one cell, on
+   the table's P points, one point a cell, every point outside, odd W,
+   eight species on a 28 x 23 grid; float32, some float64 too), each
+   with repeated launches identical, outside points exactly sigma and
+   its plan held against the plan's twin; the kappa kernel's time in 10
+   rounds of 20 calls, the sha256 of its output and its measurement
+   variants (the plan alone, write-only, staging only, the first
+   version's gather from L2, the plan's torch twin); each kernel's time
    against its twin's, and the TPU kernels' own one-hot products timed
    as one ``torch.matmul`` each (their ``library_ms``);
 4. goldens: ``Grid(planet)`` with no device named (it lands on the
@@ -138,13 +148,21 @@ def check_close(name, got, ref, rtol, atol):
 
 def ptxas_summary(report):
     """One line per kernel instantiation from ``nvcc -Xptxas -v``:
-    registers and spills, named as ``emit<float, NPT=2, mode 0>``."""
+    registers and spills, named as ``emit<float, NPT=2, mode 0>`` or
+    ``kappa_lookup<float, mode 0, 16-byte>``."""
     out, kern, spill = [], None, ""
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '.*?"
-                      r"(emit|absorb|iteration|loop|rebin|kappa)_kernelI"
-                      r"([fd])(?:Li(\d+)E)?(?:Li(\d+)E)?", line)
-        if m:
+                      r"((?:emit|absorb|iteration|loop|rebin|kappa)"
+                      r"(?:_[a-z]+)?)_kernel(?:I([fd]))?"
+                      r"(?:Li(\d+)E)?(?:L[ib](\d+)E)?", line)
+        if m and m[1].startswith("kappa"):
+            args = ([{"f": "float", "d": "double"}[m[2]]] if m[2] else []) \
+                + ([f"mode {m[3]}"] if m[3] else []) \
+                + ([{"1": "16-byte", "0": "element-wise"}[m[4]]]
+                   if m[4] else [])
+            kern = m[1] + (f"<{', '.join(args)}>" if args else "")
+        elif m:
             kern = (f"{m[1]}<{'float' if m[2] == 'f' else 'double'}"
                     + (f", NPT={m[3]}" if m[3] else "")
                     + (f", mode {m[4]}" if m[4] else "") + ">")
@@ -452,28 +470,40 @@ def sweep_digest():
     return h.hexdigest()
 
 
-def ab_leg():
+def ab_leg(kappa_only=False):
     """One leg of a parent/change comparison, on whatever checkout holds
     this file: each sweep kernel's time (phase 3's float32 timing) and a
     digest of its outputs, the whole-iteration kernels' times (one RC
-    step, one 20-iteration loop) and the headline on the "loop",
-    "iteration" and "cuda" engines.  Calls only wrappers every checkout
-    of the port has.  Prints one JSON line."""
+    step, one 20-iteration loop), the headline on the "loop",
+    "iteration" and "cuda" engines, and the kappa lookup's float32
+    headline (:func:`kappa_times`: rounds of calls and the output's
+    sha256); with ``kappa_only`` the kappa lookup alone.  Calls only
+    wrappers every checkout of the port has.  Prints one JSON line."""
     from frei_tpu_torch.ops import iteration_cuda as IC
+    from frei_tpu_torch.ops import kappa_cuda as KC
     from frei_tpu_torch.ops import sweep_cuda as S
-    with ThreadPoolExecutor(2) as pool:
-        list(pool.map(lambda m: m.build(), (S, IC)))
+    root = str(Path(__file__).resolve().parent.name)
+    if kappa_only:
+        KC.build()
+        ms, digest = kappa_times()
+        print(json.dumps({"ab_leg": {"root": root, "kappa_ms": ms,
+                                     "kappa_sha256": digest}}), flush=True)
+        return
+    with ThreadPoolExecutor(3) as pool:
+        list(pool.map(lambda m: m.build(), (S, IC, KC)))
     recs = phase_parity(torch.float32, N_COLUMNS, 1e-4, 1e-5, 1e-7,
                         timing=True)
     whole = whole_times(plain=False)
     head = phase_headline(("loop", "iteration", "cuda"), runs=5)
+    kappa_ms, kappa_digest = kappa_times()
     print(json.dumps({"ab_leg": {
-        "root": str(Path(__file__).resolve().parent.name),
+        "root": root,
         "ms": {k: r["ms_fused"] for k, r in recs.items()},
         "ms_materialized": {k: r["ms_materialized"] for k, r in recs.items()},
         "sweep_sha256": sweep_digest(),
         "whole_ms": {k: r["ms"] for k, r in whole.items()},
-        "walls": {e: h["walls"] for e, h in head.items()}}}), flush=True)
+        "walls": {e: h["walls"] for e, h in head.items()},
+        "kappa_ms": kappa_ms, "kappa_sha256": kappa_digest}}), flush=True)
 
 
 def hold_temps(label, got, ref, dT_ref, num_got, num_ref, t_rtol):
@@ -869,11 +899,9 @@ def phase_opacity_parity(edges_um):
     per-kernel records with their times and their twins' at the main
     path's shapes."""
     from frei_tpu_torch.native import grouped_trapezoid_native
-    from frei_tpu_torch.ops import kappa_cuda as KC
     from frei_tpu_torch.ops import rebin_cuda as RC
     dev = torch.device("cuda")
-    rec = {"rebin": {"max_abs_err": 0.0, "err_over_tol": 0.0},
-           "kappa": {"max_abs_err": 0.0, "err_over_tol": 0.0}}
+    rec = {"rebin": {"max_abs_err": 0.0, "err_over_tol": 0.0}}
 
     def hold(kernel, label, got, ref, rtol, atol):
         q = check_close(label, got, ref, rtol, atol)
@@ -948,41 +976,8 @@ def phase_opacity_parity(edges_um):
         f"float32 samples -> {plan.n_bins} bins, device-resident)")
     del rows
 
-    # kappa: float64 at 64 columns, float32 at the headline's width
-    for dtype, n, rtol, atol_frac in (
-            (torch.float64, PARITY64_COLUMNS, 1e-10, 0.0),
-            (torch.float32, N_COLUMNS, 1e-5, 1e-7)):
-        stack, mmr, T, P, sig = opacity_inputs(dtype, n)
-        got, _ = KC.kappa_kernel(stack, mmr, T, P, sig)
-        torch.cuda.synchronize()
-        assert torch.equal(got, KC.kappa_kernel(stack, mmr, T, P, sig)[0]), \
-            "repeated kappa launches differ"
-        ref, _ = KC.kappa_plain(stack, mmr, T, P, sig)
-        out = (ref == sig).all(-1)
-        log(f"[parity] kappa {dtype} B={n}: {int(out.sum())} of "
-            f"{out.numel()} lookup points outside the (T, P) hull")
-        assert out.any() and not out.all()
-        assert torch.equal(got[out], ref[out])
-        hold("kappa", f"kappa {str(dtype):13s} B={n:5d} L={N_LAYERS} "
-             f"W={N_BINS}", got, ref, rtol, atol_frac * float(ref.abs().max()))
-        if dtype == torch.float32:
-            del got, ref
-            rec["kappa"]["ms"] = time_ms(
-                lambda: KC.kappa_kernel(stack, mmr, T, P, sig), 20)
-            rec["kappa"]["plain_ms"] = time_ms(
-                lambda: KC.kappa_plain(stack, mmr, T, P, sig), 3)
-            # the stack, the points and sigma in, (N, W) out; per output
-            # value and species 4 corner multiply-adds and the mixing
-            # ratio's (10 operations), plus sigma
-            S_ = stack.values.shape[0]
-            rec["kappa"]["bytes"] = (nbytes(stack.values, mmr, T, P, sig)
-                                     + T.numel() * N_BINS * T.element_size())
-            rec["kappa"]["flops"] = (10 * S_ + 1) * T.numel() * N_BINS
-            rec["kappa"]["library_ms"] = kappa_library_ms(stack, T, P)
-            log(f"[timing] kappa kernel {rec['kappa']['ms']:.4f} ms, plain "
-                f"twin {rec['kappa']['plain_ms']:.4f} ms, one-hot "
-                f"torch.matmul {rec['kappa']['library_ms']:.4f} ms ({n} x "
-                f"{N_LAYERS} points x {N_BINS} bins, 2 species, float32)")
+    # the kappa kernel: every case, its plan, times and variants
+    rec["kappa"] = phase_kappa()
     return rec
 
 
@@ -1007,6 +1002,205 @@ def kappa_library_ms(stack, T, P):
     tab = stack.values.permute(1, 2, 0, 3).reshape(nT * nP, S_ * W)
     tab = tab.contiguous()
     return time_ms(lambda: torch.matmul(onehot, tab), 5)
+
+
+# the kappa headline's timing: rounds of calls (the spread between
+# calls is a question of its own, PERF.md section 7)
+KAPPA_ROUNDS, KAPPA_CALLS = 10, 20
+# eight species of the S=8 kappa case
+KAPPA_SPECIES8 = ("1H2-16O", "12C-16O", "12C-1H4", "12C-16O2", "14N-1H3",
+                  "1H-12C-14N", "1H2-32S", "48Ti-16O")
+
+
+def kappa_case(case, dtype):
+    """Phase 3c's kappa cases beside the headline's (:func:`opacity_inputs`):
+
+    * ``"one-cell"``: every one of 8192 x 30 points in one (T, P) cell;
+    * ``"layer-grid"``: every point on the table's P points, the layer
+      pressures broadcast over the columns as phase 4c's caller passes
+      them (8192 x 30);
+    * ``"distinct"``: one point in each cell's interior;
+    * ``"outside"``: every point outside the hull, half above it in T and
+      half below (1024 x 30);
+    * ``"odd-W"``: W = 499 (float32) or 7 (float64), 1024 x 30 points, no
+      16-byte pieces;
+    * ``"S=8"``: eight species on the reference H2O store's 28 T x 23 P
+      grid (``tools/etl_volume.py``), 2048 x 30 points x 500 bins.
+
+    Returns ``(stack, mmr, T, P, sigma)`` on the card."""
+    from frei_tpu_torch.opacity.tables import make_opacity_stack
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(12)
+
+    def dv(a):
+        return torch.as_tensor(a, dtype=dtype, device=dev)
+
+    if case in ("one-cell", "layer-grid", "distinct", "outside"):
+        n = N_COLUMNS if case in ("one-cell", "layer-grid") else 1024
+        stack, _, T, P, sig = opacity_inputs(dtype, n)
+        temps, press = stack.temps, stack.press_cgs
+        if case == "one-cell":
+            T = temps[12] + (temps[13] - temps[12]) * dv(
+                rng.uniform(0.01, 0.99, T.shape))
+            P = press[5] + (press[6] - press[5]) * dv(
+                rng.uniform(0.01, 0.99, T.shape))
+        elif case == "layer-grid":
+            P = press.flip(0).expand(n, N_LAYERS)
+        elif case == "distinct":
+            T = (0.5 * (temps[:-1] + temps[1:]))[:, None].expand(
+                -1, len(press) - 1)
+            P = (0.5 * (press[:-1] + press[1:]))[None, :].expand_as(T)
+        else:
+            T = torch.where(torch.as_tensor(rng.rand(*T.shape) < 0.5,
+                                            device=dev),
+                            temps[-1] * dv(rng.uniform(1.01, 2.0, T.shape)),
+                            temps[0] * dv(rng.uniform(0.1, 0.99, T.shape)))
+        mmr = dv(rng.uniform(1e-5, 1e-3, (2,) + tuple(T.shape)))
+        return stack, mmr, T, P, sig
+    if case == "odd-W":
+        W, n, names = (499 if dtype == torch.float32 else 7), 1024, \
+            ETL_SPECIES
+        t_ax, p_ax = np.linspace(500.0, 3500.0, 30), np.logspace(-6, 2.5, 30)
+        T = rng.uniform(400.0, 3600.0, (n, N_LAYERS))
+        P = 10.0 ** rng.uniform(-6.5, 3.0, (n, N_LAYERS)) * 1e6
+    else:
+        W, n, names = N_BINS, 2048, KAPPA_SPECIES8
+        t_ax, p_ax = np.linspace(100.0, 3500.0, 28), np.logspace(-8, 3, 23)
+        T = rng.uniform(50.0, 3600.0, (n, N_LAYERS))
+        P = 10.0 ** rng.uniform(-8.5, 3.5, (n, N_LAYERS)) * 1e6
+    tables = {iso: (rng.uniform(0.1, 1.0, (len(t_ax), len(p_ax), W))
+                    * (k + 1), t_ax, p_ax) for k, iso in enumerate(names)}
+    stack = make_opacity_stack(tables, dtype=dtype, device=dev)
+    mmr = dv(rng.uniform(1e-5, 1e-3, (len(names), n, N_LAYERS)))
+    return stack, mmr, dv(T), dv(P), dv(np.linspace(1e-3, 2e-3, W))
+
+
+def hold_kappa_plan(label, plan, ref):
+    """The CUDA plan against its twin: keys, fractions and both offset
+    scans exact; the order a permutation listing the points bucket by
+    bucket (inside a bucket the kernel's order is open)."""
+    assert torch.equal(plan.key, ref.key), f"{label}: keys differ"
+    assert torch.equal(plan.frac, ref.frac), f"{label}: fractions differ"
+    assert torch.equal(plan.offsets, ref.offsets), f"{label}: offsets"
+    assert torch.equal(plan.item_offsets, ref.item_offsets), \
+        f"{label}: work-item offsets differ"
+    order = plan.order.long()
+    assert torch.equal(torch.sort(order).values,
+                       torch.arange(order.numel(), device=order.device)), \
+        f"{label}: the order is not a permutation"
+    assert torch.equal(plan.key[order], ref.key[ref.order.long()]), \
+        f"{label}: a point outside its bucket"
+
+
+def kappa_times(rounds=KAPPA_ROUNDS):
+    """The float32 headline lookup (8192 x 30 points x 500 bins, 2
+    species) through ``kappa_kernel``, which every checkout of the port
+    has: ``rounds`` means of ``KAPPA_CALLS`` calls each, by CUDA events,
+    and the sha256 of its output."""
+    import hashlib
+    from frei_tpu_torch.ops import kappa_cuda as KC
+    args = opacity_inputs(torch.float32, N_COLUMNS)
+    ms = [time_ms(lambda: KC.kappa_kernel(*args), KAPPA_CALLS)
+          for _ in range(rounds)]
+    out = KC.kappa_kernel(*args)[0]
+    torch.cuda.synchronize()
+    return ms, hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()
+
+
+def phase_kappa():
+    """Phase 3c's kappa part: the kernel against the gather twin in every
+    case (the headline's inputs in float64 at 64 columns and float32 at
+    8192, and each of :func:`kappa_case` in float32, some in float64 too):
+    float64 rtol 1e-10, float32 rtol 1e-5 plus 1e-7 of the largest value,
+    repeated launches identical, points outside the hull exactly sigma;
+    the CUDA plan against its twin (:func:`hold_kappa_plan`); then at the
+    float32 headline the kernel's time in rounds, its variants (the plan
+    alone, write-only, staging only, the first version's gather), the
+    plan's torch twin, the plain twin and one library call.  Returns the
+    kernel's record."""
+    from frei_tpu_torch.ops import kappa_cuda as KC
+    rec = {"max_abs_err": 0.0, "err_over_tol": 0.0}
+    cases = [("headline", torch.float64), ("headline", torch.float32),
+             ("one-cell", torch.float32), ("layer-grid", torch.float32),
+             ("distinct", torch.float64), ("distinct", torch.float32),
+             ("outside", torch.float32), ("odd-W", torch.float32),
+             ("odd-W", torch.float64), ("S=8", torch.float32),
+             ("S=8", torch.float64)]
+    for case, dtype in cases:
+        if case == "headline":
+            args = opacity_inputs(dtype, PARITY64_COLUMNS
+                                  if dtype == torch.float64 else N_COLUMNS)
+        else:
+            args = kappa_case(case, dtype)
+        stack, mmr, T, P, sig = args
+        S_, nT, nP, W = stack.values.shape
+        label = (f"kappa {case:10s} {str(dtype):13s} points "
+                 f"{tuple(T.shape)} S={S_} {nT}x{nP} W={W}")
+        got, _ = KC.kappa_kernel(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, KC.kappa_kernel(*args)[0]), \
+            f"{label}: repeated launches differ"
+        ref, _ = KC.kappa_plain(*args)
+        plan_ref = KC.kappa_plan_plain(stack, T, P)
+        hold_kappa_plan(label, KC.kappa_variant("plan", *args)[1], plan_ref)
+        out = (plan_ref.key == nT * nP).reshape(got.shape[:-1])
+        assert (got[out] == sig).all() and (ref[out] == sig).all(), \
+            f"{label}: a point outside the hull is not sigma"
+        rtol, atol_frac = ((1e-10, 0.0) if dtype == torch.float64
+                           else (1e-5, 1e-7))
+        q = check_close(label, got, ref, rtol,
+                        atol_frac * float(ref.abs().max()))
+        r, ab = rel_err(got, ref)
+        rec["max_abs_err"] = max(rec["max_abs_err"], ab)
+        rec["err_over_tol"] = max(rec["err_over_tol"], q)
+        items = int(plan_ref.item_offsets[-1])
+        full = int((torch.diff(plan_ref.offsets) > 0).sum())
+        log(f"[parity] {label}: {int(out.sum())} of {out.numel()} points "
+            f"outside the hull, {full} buckets, {items} work items; max "
+            f"rel {r:.3e} max abs {ab:.3e} max err/bound {q:.3f}; plan as "
+            f"its twin")
+        del got, ref
+
+    # the float32 headline: times in rounds, variants, twins
+    ms, digest = kappa_times()
+    rec["ms"] = float(np.median(ms))
+    rec["ms_rounds"] = ms
+    rec["sha256"] = digest
+    args = opacity_inputs(torch.float32, N_COLUMNS)
+    stack, mmr, T, P, sig = args
+    S_ = stack.values.shape[0]
+    rec["plain_ms"] = time_ms(lambda: KC.kappa_plain(*args), 3)
+    # the stack, the points and sigma in, (N, W) out; per output value and
+    # species 4 corner multiply-adds and the mixing ratio's (10
+    # operations), plus sigma
+    rec["bytes"] = (nbytes(stack.values, mmr, T, P, sig)
+                    + T.numel() * N_BINS * T.element_size())
+    rec["flops"] = (10 * S_ + 1) * T.numel() * N_BINS
+    rec["library_ms"] = kappa_library_ms(stack, T, P)
+    tb = rec["bytes"] / PEAK_BYTES * 1e3
+    lookup, _ = KC.kappa_variant("lookup", *args)
+    gather, _ = KC.kappa_variant("gather", *args)
+    torch.cuda.synchronize()
+    same = torch.equal(lookup, gather)
+    del lookup, gather
+    variants = {v: time_ms(lambda v=v: KC.kappa_variant(v, *args),
+                           KAPPA_CALLS)
+                for v in ("lookup", "plan", "write", "stage", "gather")}
+    variants["torch plan"] = time_ms(
+        lambda: KC.kappa_plan_plain(stack, T, P), 5)
+    rec["variants"] = variants
+    log(f"[timing] kappa kernel (wrapper) {KAPPA_ROUNDS} rounds of "
+        f"{KAPPA_CALLS} calls: min {min(ms):.4f} median {rec['ms']:.4f} "
+        f"max {max(ms):.4f} ms ({', '.join(f'{x:.4f}' for x in ms)}); "
+        f"plain twin {rec['plain_ms']:.4f} ms, one-hot torch.matmul "
+        f"{rec['library_ms']:.4f} ms ({N_COLUMNS} x {N_LAYERS} points x "
+        f"{N_BINS} bins, {S_} species, float32); output sha256 {digest}")
+    for v, x in variants.items():
+        log(f"[variants] kappa {v:10s} {x:.4f} ms, {tb / x:.3f} of the "
+            f"bytes bound ({tb:.4f} ms)")
+    log(f"[variants] kappa lookup and the first version's gather give the "
+        f"same bits: {same}")
+    return rec
 
 
 def phase_etl(root):
@@ -1230,8 +1424,15 @@ def main(argv):
         f"{torch.version.cuda}; TF32 off for matmul and cuDNN")
     log(smi)
 
-    if argv == ["--ab-leg"]:
-        ab_leg()
+    if argv in (["--ab-leg"], ["--ab-leg", "kappa"]):
+        ab_leg(kappa_only=argv[1:] == ["kappa"])
+        return
+    if argv == ["--kappa"]:
+        # the kappa kernel alone: build, every case, its plan, times and
+        # variants
+        log("\n".join(f"[build] {line}"
+                      for line in ptxas_summary(KC.build())))
+        phase_kappa()
         return
     if argv == ["--sweeps"]:
         # the sweep kernels alone: build, parity, times and variants
@@ -1329,7 +1530,8 @@ def main(argv):
             ("rebin", "resort_rebin", "rebin.cu",
              "frei_tpu/ops/rebin_pallas.py:47")):
         rows.append((name_, src, replaces, etl["launches"][name_], opac[k],
-                     {}))
+                     {x: opac[k][x] for x in ("ms_rounds", "variants")
+                      if x in opac[k]}))
     kernels = []
     for name_, src, replaces, launches, r, extra in rows:
         bound_ms, bound_by = bound(r["bytes"], r["flops"])

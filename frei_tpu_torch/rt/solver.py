@@ -40,7 +40,13 @@ __all__ = ["SolverConfig", "RTConstants", "RTResult", "solve_rc",
            "solve_rc_batched"]
 
 ENGINES = ("auto", "eager", "cuda", "iteration", "loop")
-_JAX_NAMES = {"pallas-iteration": "iteration", "pallas-loop": "loop"}
+#: the JAX package's engine names (each also with "-interpret"), by
+#: their counterpart here
+_JAX_NAMES = {jax_name + suffix: ours
+              for jax_name, ours in (("xla", "eager"), ("pallas", "cuda"),
+                                     ("pallas-iteration", "iteration"),
+                                     ("pallas-loop", "loop"))
+              for suffix in ("", "-interpret")}
 
 
 class SolverConfig(NamedTuple):
@@ -106,12 +112,11 @@ def _push_history(T_new, cs: _ConvState) -> _ConvState:
 
 
 def _resolve_engine(engine: str, device: torch.device) -> str:
+    if engine in _JAX_NAMES:
+        raise ValueError(
+            f"engine {engine!r} is the JAX package's name; this package's "
+            f"counterpart is engine {_JAX_NAMES[engine]!r}")
     if engine not in ENGINES:
-        for jax_name, ours in _JAX_NAMES.items():
-            if engine.startswith(jax_name):
-                raise ValueError(
-                    f"engine {engine!r} is the JAX package's name; this "
-                    f"package's counterpart is engine {ours!r}")
         raise ValueError(f"unknown sweep engine {engine!r} "
                          f"(expected one of {ENGINES})")
     if engine == "auto":

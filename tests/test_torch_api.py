@@ -4,18 +4,20 @@ refusal of what is not ported yet."""
 
 import subprocess
 import sys
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
-import frei_tpu
-from frei_tpu_torch import (Grid, Planet, effective_temperature,
+torch = pytest.importorskip("torch")
+
+import frei_tpu  # noqa: E402
+from frei_tpu_torch import (Grid, Planet, effective_temperature,  # noqa: E402
                             load_example_opacity, make_opacity_stack)
-from frei_tpu_torch.opacity.hotpath import build_kappa_model
-from frei_tpu_torch.rt.physics import PhysicsParams
-from frei_tpu_torch.rt.solver import SolverConfig, solve_rc_batched
+from frei_tpu_torch.opacity.hotpath import build_kappa_model  # noqa: E402
+from frei_tpu_torch.rt.physics import PhysicsParams  # noqa: E402
+from frei_tpu_torch.rt.solver import SolverConfig, solve_rc_batched  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -210,3 +212,45 @@ def test_unported_feature_raises(small, case):
         consts = consts._replace(F_toa=consts.F_toa.expand(2, -1))
     with pytest.raises(NotImplementedError, match=match):
         solve_rc_batched(T, consts, params, grid._kappa_fn, cfg)
+
+
+@pytest.mark.parametrize("jax_name, ours", [
+    ("xla", "eager"), ("pallas", "cuda"), ("xla-interpret", "eager"),
+    ("pallas-interpret", "cuda"), ("pallas-iteration", "iteration"),
+    ("pallas-loop", "loop"), ("pallas-iteration-interpret", "iteration"),
+    ("pallas-loop-interpret", "loop")])
+def test_jax_engine_names_name_the_counterpart(small, jax_name, ours):
+    """Every engine name of the JAX package's solver is refused with this
+    package's counterpart named, matched exactly (so "pallas" does not
+    shadow "pallas-iteration"); a near miss is an unknown engine."""
+    grid, T = small
+    consts, params = grid._consts, grid.planet.physics_params()
+    cfg = SolverConfig(n_timesteps=1, engine=jax_name)
+    with pytest.raises(ValueError, match=(
+            f"engine '{jax_name}' is the JAX package's name; this "
+            f"package's counterpart is engine '{ours}'$")):
+        solve_rc_batched(T, consts, params, grid._kappa_fn, cfg)
+    with pytest.raises(ValueError, match="unknown sweep engine"):
+        solve_rc_batched(T, consts, params, grid._kappa_fn,
+                         cfg._replace(engine=jax_name + "-x"))
+
+
+def test_port_tests_skip_cleanly_without_torch():
+    """Where torch is not installed (the JAX package's CI job), every port
+    test file skips at collection and the JAX package's tests still
+    collect: no collection error stops the run."""
+    tests = Path(__file__).resolve().parent
+    files = sorted(str(f) for f in tests.glob("test_torch_*.py"))
+    code = ("import sys; sys.modules['torch'] = None; import pytest; "
+            "sys.exit(pytest.main(sys.argv[1:]))")
+    proc = subprocess.run(
+        [sys.executable, "-c", code, "--collect-only", "-q",
+         "-p", "no:cacheprovider", "-p", "no:xdist", "-p", "no:randomly",
+         *files, str(tests / "test_grids.py")],
+        capture_output=True, text=True, timeout=120, cwd=tests.parent)
+    out = proc.stdout + proc.stderr
+    assert proc.returncode == 0, out
+    assert "error during collection" not in out.lower(), out
+    summary = proc.stdout.strip().splitlines()[-1]   # "N tests collected in ..."
+    assert "collected" in summary and "error" not in summary, out
+    assert "test_grids.py::" in out, out

@@ -26,11 +26,12 @@ the largest value (float32, summation order).
 
 import numpy as np
 import pytest
-import torch
 
-from frei_tpu_torch import Grid, Planet, load_example_opacity
-from frei_tpu_torch.ops import sweep_cuda as S
-from frei_tpu_torch.rt.physics import PhysicsParams
+torch = pytest.importorskip("torch")
+
+from frei_tpu_torch import Grid, Planet, load_example_opacity  # noqa: E402
+from frei_tpu_torch.ops import sweep_cuda as S  # noqa: E402
+from frei_tpu_torch.rt.physics import PhysicsParams  # noqa: E402
 
 B, L, W = 5, 7, 300     # W > 256: two wavelengths per thread
 
@@ -606,3 +607,94 @@ def test_kappa_kernel_rejects_bad_arguments():
         KC.kappa_kernel(stack._replace(
             values=stack.values.transpose(1, 2).contiguous().transpose(1, 2)),
             mmr, T, P, sig)
+
+
+def _kappa_skew_case(case, dtype, dev):
+    """The plan's edge cases on the card: W of 1, 7 or 301 (no 16-byte
+    pieces) or 302 (float64 rows 16 bytes past whole 32-byte sectors: the
+    warps' stores shifted onto sectors), every point in one cell (N >>
+    ITEM_POINTS), every point in its own cell, every point outside the
+    hull, no point at all, a one-point P axis, and more cells than the
+    plan counts in shared memory (70 T x 60 P); two species on 6 T x 5 P
+    points otherwise."""
+    from frei_tpu_torch.opacity.tables import make_opacity_stack
+    rng = np.random.RandomState(21)
+    w = {"W=1": 1, "W=7": 7, "W=301": 301, "W=302": 302}.get(case, 64)
+    n_t, n_p = {"single-P": (6, 1), "many-cells": (70, 60)}.get(case,
+                                                                 (6, 5))
+    T_ax = np.linspace(600.0, 3200.0, n_t)
+    P_ax = np.logspace(-5, 2, n_p)
+    stack = make_opacity_stack(
+        {"1H2-16O": (rng.rand(n_t, n_p, w) + 0.1, T_ax, P_ax),
+         "12C-16O": (rng.rand(n_t, n_p, w) * 2, T_ax, P_ax)}, dtype=dtype,
+        device=dev)
+    shape = (0, 9) if case == "empty" else (40, 30)
+    T = rng.uniform(400.0, 3400.0, shape)
+    P = 10.0 ** rng.uniform(0, 9, shape)
+    if case == "one-cell":
+        T = rng.uniform(1150.0, 1600.0, shape)
+        P = rng.uniform(1e2, 5e2, shape)
+    elif case == "distinct":
+        i, j = np.meshgrid(np.arange(5), np.arange(4), indexing="ij")
+        T = 0.5 * (T_ax[i] + T_ax[i + 1])
+        P = np.sqrt(P_ax[j] * P_ax[j + 1]) * 1e6
+    elif case == "outside":
+        T = rng.uniform(3300.0, 5000.0, shape)
+    elif case == "single-P":
+        P = np.full(shape, P_ax[0] * 1e6)
+    mmr = rng.uniform(1e-5, 1e-3, (2,) + T.shape)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=dev)
+    return stack, t(mmr), t(T), t(P), t(np.linspace(1e-3, 2e-3, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["W=1", "W=7", "W=301", "W=302",
+                                  "one-cell", "distinct", "outside",
+                                  "empty", "single-P", "many-cells"])
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_kappa_kernel_and_plan_at_the_edges(dtype, case):
+    """The kernel against the gather twin (tolerances as above) at odd
+    widths and skewed points, repeated launches identical, points outside
+    the hull exactly sigma; its plan against the plan's twin: keys,
+    fractions and offsets exact, the order a permutation that lists the
+    points bucket by bucket."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kappa kernel runs only on "
+                    "the card")
+    from frei_tpu_torch.ops import kappa_cuda as KC
+    dt = getattr(torch, dtype)
+    args = _kappa_skew_case(case, dt, torch.device("cuda"))
+    stack, mmr, T, P, sig = args
+    got, _ = KC.kappa_kernel(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, KC.kappa_kernel(*args)[0])
+    ref, _ = KC.kappa_plain(*args)
+    assert got.shape == ref.shape
+    rtol, atol = (1e-10, 0.0) if dtype == "float64" else (1e-5, 1e-7)
+    scale = float(ref.abs().max()) if ref.numel() else 0.0
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                               rtol=rtol, atol=atol * scale)
+    want = KC.kappa_plan_plain(stack, T, P)
+    _, plan = KC.kappa_variant("plan", *args)
+    torch.cuda.synchronize()
+    M = stack.values.shape[1] * stack.values.shape[2]
+    outside = (want.key == M).reshape(got.shape[:-1])
+    assert (got[outside] == sig).all()
+    for field in ("key", "frac", "offsets", "item_offsets"):
+        assert torch.equal(getattr(plan, field), getattr(want, field)), field
+    order = plan.order.long()
+    assert torch.equal(torch.sort(order).values,
+                       torch.arange(order.numel(), device=order.device))
+    assert torch.equal(plan.key[order], want.key[want.order.long()])
+    if case == "outside":
+        assert outside.all()
+    if case == "one-cell":
+        assert (want.key == want.key[0]).all() and not outside.any()
+    # the first version's gather of every corner from L2 computes the
+    # same function
+    gather, _ = KC.kappa_variant("gather", *args)
+    np.testing.assert_allclose(gather.reshape(got.shape).cpu().numpy(),
+                               ref.cpu().numpy(), rtol=rtol,
+                               atol=atol * scale)

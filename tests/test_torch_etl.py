@@ -14,16 +14,17 @@ rtol 5e-5, as the JAX package holds its own."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
-import frei_tpu
-from frei_tpu.grids import make_rt_grid as j_make_rt_grid
-from frei_tpu.opacity import etl as jetl
-from frei_tpu_torch import Grid, Planet
-from frei_tpu_torch.grids import make_rt_grid
-from frei_tpu_torch.native import native_available
-from frei_tpu_torch.opacity import etl
-from frei_tpu_torch.opacity.tables import make_opacity_stack
+torch = pytest.importorskip("torch")
+
+import frei_tpu  # noqa: E402
+from frei_tpu.grids import make_rt_grid as j_make_rt_grid  # noqa: E402
+from frei_tpu.opacity import etl as jetl  # noqa: E402
+from frei_tpu_torch import Grid, Planet  # noqa: E402
+from frei_tpu_torch.grids import make_rt_grid  # noqa: E402
+from frei_tpu_torch.native import native_available  # noqa: E402
+from frei_tpu_torch.opacity import etl  # noqa: E402
+from frei_tpu_torch.opacity.tables import make_opacity_stack  # noqa: E402
 
 torch.set_num_threads(2)
 

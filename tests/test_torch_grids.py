@@ -5,20 +5,21 @@ tests/test_grids.py pins them for the JAX package."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
-import frei_tpu.grids as jg
-import frei_tpu.opacity.rayleigh as jr
-import frei_tpu.ops.planck as jp
-import frei_tpu.stellar.irradiation as ji
-import frei_tpu.units as ju
-import frei_tpu_torch.grids as tg
-import frei_tpu_torch.opacity.rayleigh as tr
-import frei_tpu_torch.ops.planck as tp
-import frei_tpu_torch.stellar.irradiation as ti
-import frei_tpu_torch.units as tu
-from frei_tpu import constants as jc
-from frei_tpu_torch import constants as tc
+torch = pytest.importorskip("torch")
+
+import frei_tpu.grids as jg  # noqa: E402
+import frei_tpu.opacity.rayleigh as jr  # noqa: E402
+import frei_tpu.ops.planck as jp  # noqa: E402
+import frei_tpu.stellar.irradiation as ji  # noqa: E402
+import frei_tpu.units as ju  # noqa: E402
+import frei_tpu_torch.grids as tg  # noqa: E402
+import frei_tpu_torch.opacity.rayleigh as tr  # noqa: E402
+import frei_tpu_torch.ops.planck as tp  # noqa: E402
+import frei_tpu_torch.stellar.irradiation as ti  # noqa: E402
+import frei_tpu_torch.units as tu  # noqa: E402
+from frei_tpu import constants as jc  # noqa: E402
+from frei_tpu_torch import constants as tc  # noqa: E402
 
 torch.set_num_threads(2)
 

@@ -20,22 +20,23 @@ in dT.  Integer and boolean outputs must match exactly.
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
-from frei_tpu import Grid as JGrid
-from frei_tpu import Planet as JPlanet
-from frei_tpu import load_example_opacity as j_fixture
-from frei_tpu.chemistry.mocks import MockChemistry as JMock
-from frei_tpu.ops import iteration_pallas as jip
-from frei_tpu.rt.solver import SolverConfig as JConfig
-from frei_tpu.rt.solver import solve_rc_batched as j_solve
-from frei_tpu_torch import (Grid, Planet, effective_temperature,
+torch = pytest.importorskip("torch")
+
+from frei_tpu import Grid as JGrid  # noqa: E402
+from frei_tpu import Planet as JPlanet  # noqa: E402
+from frei_tpu import load_example_opacity as j_fixture  # noqa: E402
+from frei_tpu.chemistry.mocks import MockChemistry as JMock  # noqa: E402
+from frei_tpu.ops import iteration_pallas as jip  # noqa: E402
+from frei_tpu.rt.solver import SolverConfig as JConfig  # noqa: E402
+from frei_tpu.rt.solver import solve_rc_batched as j_solve  # noqa: E402
+from frei_tpu_torch import (Grid, Planet, effective_temperature,  # noqa: E402
                             load_example_opacity)
-from frei_tpu_torch.chemistry.mocks import MockChemistry
-from frei_tpu_torch.io import convert
-from frei_tpu_torch.opacity.hotpath import build_kappa_model
-from frei_tpu_torch.ops import iteration_cuda as ic
-from frei_tpu_torch.rt.solver import SolverConfig, solve_rc_batched
+from frei_tpu_torch.chemistry.mocks import MockChemistry  # noqa: E402
+from frei_tpu_torch.io import convert  # noqa: E402
+from frei_tpu_torch.opacity.hotpath import build_kappa_model  # noqa: E402
+from frei_tpu_torch.ops import iteration_cuda as ic  # noqa: E402
+from frei_tpu_torch.rt.solver import SolverConfig, solve_rc_batched  # noqa: E402
 
 torch.set_num_threads(2)
 

@@ -12,8 +12,10 @@ layout.  The kernels themselves run only on the card
 
 import pytest
 
-from frei_tpu_torch.ops import iteration_cuda as ic
-from frei_tpu_torch.ops import sweep_cuda as sc
+pytest.importorskip("torch")
+
+from frei_tpu_torch.ops import iteration_cuda as ic  # noqa: E402
+from frei_tpu_torch.ops import sweep_cuda as sc  # noqa: E402
 
 
 def _a16(n):

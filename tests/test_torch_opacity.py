@@ -6,19 +6,20 @@ contractions at rtol 1e-12 (summation order)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
-import frei_tpu.opacity.tables as jtab
-from frei_tpu import Grid as JGrid
-from frei_tpu import Planet as JPlanet
-from frei_tpu.chemistry.mocks import MockChemistry as JMock
-from frei_tpu.opacity.hotpath import build_kappa_model as j_build
-from frei_tpu_torch import Grid, Planet
-from frei_tpu_torch import load_example_opacity
-from frei_tpu_torch.chemistry.mocks import MockChemistry
-from frei_tpu_torch.io import convert
-from frei_tpu_torch.opacity import tables as ttab
-from frei_tpu_torch.opacity.hotpath import build_kappa_model
+torch = pytest.importorskip("torch")
+
+import frei_tpu.opacity.tables as jtab  # noqa: E402
+from frei_tpu import Grid as JGrid  # noqa: E402
+from frei_tpu import Planet as JPlanet  # noqa: E402
+from frei_tpu.chemistry.mocks import MockChemistry as JMock  # noqa: E402
+from frei_tpu.opacity.hotpath import build_kappa_model as j_build  # noqa: E402
+from frei_tpu_torch import Grid, Planet  # noqa: E402
+from frei_tpu_torch import load_example_opacity  # noqa: E402
+from frei_tpu_torch.chemistry.mocks import MockChemistry  # noqa: E402
+from frei_tpu_torch.io import convert  # noqa: E402
+from frei_tpu_torch.opacity import tables as ttab  # noqa: E402
+from frei_tpu_torch.opacity.hotpath import build_kappa_model  # noqa: E402
 
 torch.set_num_threads(2)
 L, W = 9, 40

@@ -12,14 +12,16 @@ bit-identical to the JAX package's (the same C++ source)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
-from frei_tpu.native import grouped_trapezoid_native as j_native
-from frei_tpu.ops import rebin as jrebin
-from frei_tpu.ops.rebin_pallas import resort_rebin_pallas
-from frei_tpu_torch.native import grouped_trapezoid_native, native_available
-from frei_tpu_torch.ops import rebin as trebin
-from frei_tpu_torch.ops import rebin_cuda as RC
+torch = pytest.importorskip("torch")
+
+from frei_tpu.native import grouped_trapezoid_native as j_native  # noqa: E402
+from frei_tpu.ops import rebin as jrebin  # noqa: E402
+from frei_tpu.ops.rebin_pallas import resort_rebin_pallas  # noqa: E402
+from frei_tpu_torch.native import (grouped_trapezoid_native,  # noqa: E402
+                                   native_available)
+from frei_tpu_torch.ops import rebin as trebin  # noqa: E402
+from frei_tpu_torch.ops import rebin_cuda as RC  # noqa: E402
 
 torch.set_num_threads(2)
 

@@ -10,17 +10,19 @@ exactly.
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
-from frei_tpu import Grid as JGrid
-from frei_tpu import Planet as JPlanet
-from frei_tpu import load_example_opacity as j_fixture
-from frei_tpu.rt.solver import SolverConfig as JConfig
-from frei_tpu.rt.solver import solve_rc as j_solve_rc
-from frei_tpu.rt.solver import solve_rc_batched as j_solve
-from frei_tpu_torch import Grid, Planet
-from frei_tpu_torch.io import convert
-from frei_tpu_torch.rt.solver import SolverConfig, solve_rc, solve_rc_batched
+torch = pytest.importorskip("torch")
+
+from frei_tpu import Grid as JGrid  # noqa: E402
+from frei_tpu import Planet as JPlanet  # noqa: E402
+from frei_tpu import load_example_opacity as j_fixture  # noqa: E402
+from frei_tpu.rt.solver import SolverConfig as JConfig  # noqa: E402
+from frei_tpu.rt.solver import solve_rc as j_solve_rc  # noqa: E402
+from frei_tpu.rt.solver import solve_rc_batched as j_solve  # noqa: E402
+from frei_tpu_torch import Grid, Planet  # noqa: E402
+from frei_tpu_torch.io import convert  # noqa: E402
+from frei_tpu_torch.rt.solver import (SolverConfig, solve_rc,  # noqa: E402
+                                      solve_rc_batched)
 
 torch.set_num_threads(2)
 B, L, W = 3, 7, 24

@@ -18,15 +18,16 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
-from frei_tpu import Grid, Planet, load_example_opacity
-from frei_tpu.ops import sweep_pallas as sp
-from frei_tpu.rt import sweeps as jax_sweeps
-from frei_tpu_torch.io import convert
-from frei_tpu_torch.ops import sweep_cuda as sc_mod
-from frei_tpu_torch.rt.physics import PhysicsParams
-from frei_tpu_torch.rt.sweeps import emit_dtaus
+torch = pytest.importorskip("torch")
+
+from frei_tpu import Grid, Planet, load_example_opacity  # noqa: E402
+from frei_tpu.ops import sweep_pallas as sp  # noqa: E402
+from frei_tpu.rt import sweeps as jax_sweeps  # noqa: E402
+from frei_tpu_torch.io import convert  # noqa: E402
+from frei_tpu_torch.ops import sweep_cuda as sc_mod  # noqa: E402
+from frei_tpu_torch.rt.physics import PhysicsParams  # noqa: E402
+from frei_tpu_torch.rt.sweeps import emit_dtaus  # noqa: E402
 
 torch.set_num_threads(2)
 

@@ -6,12 +6,13 @@ the last bits of their transcendental functions)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
-import frei_tpu.ops.twostream as jt
-import frei_tpu.rt.physics as jph
-import frei_tpu_torch.ops.twostream as tt
-import frei_tpu_torch.rt.physics as tph
+torch = pytest.importorskip("torch")
+
+import frei_tpu.ops.twostream as jt  # noqa: E402
+import frei_tpu.rt.physics as jph  # noqa: E402
+import frei_tpu_torch.ops.twostream as tt  # noqa: E402
+import frei_tpu_torch.rt.physics as tph  # noqa: E402
 
 torch.set_num_threads(2)
 RTOL = 1e-12
