@@ -2,8 +2,8 @@
 """Smoke run of frei_tpu_torch's main path on one NVIDIA GPU.
 
     python3 chip_smoke.py              # every phase (one card)
-    python3 chip_smoke.py --sweeps     # build sweep.cu; phases 3 and 3d
-    python3 chip_smoke.py --iteration  # build iteration.cu; phases 3b and 3e
+    python3 chip_smoke.py --sweeps     # build sweep.cu; phases 3, 3d, 3f
+    python3 chip_smoke.py --iteration  # build iteration.cu; phases 3b, 3e
     python3 chip_smoke.py --kappa      # build kappa.cu; phase 3c's kappa part
     python3 chip_smoke.py --ab-leg     # one leg of a parent/change pair
     python3 chip_smoke.py --ab-leg kappa   # the same, the kappa lookup alone
@@ -29,13 +29,23 @@ Phases, one report line each, any failure raising (non-zero exit):
    arithmetic alone, no quadratures, the ring at depth 0, the ring
    filled by TMA bulk copies, a persistent grid; see
    :func:`phase_sweep_variants`);
+3f. per-column sweeps (population mode): the sweep kernels with
+   per-column dtau factors and F_toa (bench.py's population draws)
+   against their twins, float64 at 64 columns (rtol 1e-10) and float32
+   at 8192 (phase 3's tolerances); eight copies of one planet bit for bit
+   the shared-planet kernels; the per-column sweep's time beside the
+   shared one's (:func:`phase_population_sweeps`);
 3b. whole-iteration parity: the iteration kernel against its twin on
    one RC step (float64 at 64 columns, every third frozen, rtol 1e-10;
    float32 at 8192 columns), and the loop kernel against its twin
    (float64 at 64 columns over 3 iterations with some columns converging
    early; float32 at 8192 columns for 1 iteration); see
    :func:`hold_step` for how a step is held; each kernel's time against
-   its twin's at the headline shape;
+   its twin's at the headline shape; then both kernels on equilibrium
+   chemistry (:func:`phase_iteration_chemistry`: ``FastChemTorch``'s
+   default table for ``1H2-16O``, ``23Na``, ``48Ti-16O`` built on the
+   card, its layer ln-MMR tables on 64 log T points for one and for three
+   species, float64 at 64 columns, rtol 1e-10);
 3e. where an RC step's time goes: the iteration kernel against its
    measurement variants (the arithmetic alone, a copy with the step's
    loads and stores, the step without its serial phases, the ring at
@@ -67,6 +77,16 @@ Phases, one report line each, any failure raising (non-zero exit):
    engine;
 4b. the same goldens through ``Grid.emission_spectra`` on the
    ``"loop"`` and ``"iteration"`` engines;
+4d. population: ``solve_population`` of eight planets, float64, 3
+   iterations on ``"cuda"``, each column against its planet's own
+   ``Grid`` solve (rtol 1e-12, bit-equal counted) and ``"eager"`` (rtol
+   1e-9) (:func:`phase_population`);
+4e. equilibrium chemistry: ``Grid(planet)`` with no device named and
+   ``chemistry="equilibrium"`` (the default table's build wall); float64
+   solves of 64 columns x 3 iterations on ``"cuda"``, ``"iteration"``
+   and ``"loop"`` against ``"eager"`` (flux rtol 1e-7 / 1e-4); the four
+   maximum-VMR goldens of the exact solver on the card
+   (:func:`phase_chemistry`);
 4c. the opacity plane end to end: two synthetic line-list stores
    (``1H2-16O``, ``12C-16O``; 8 T x 8 P x 2e6 samples, 512 MB each) under
    a fresh ``FREI_TPU_CACHE``; ``Grid(device="cuda").load_opacities(
@@ -83,11 +103,15 @@ Phases, one report line each, any failure raising (non-zero exit):
    20 fixed iterations, float32, on the ``"loop"``, ``"iteration"``,
    ``"cuda"`` and ``"eager"`` engines: columns x bins per second, peak
    memory, launch counts (every count set to 0 before each engine's
-   run and read after it).
+   run and read after it); then the same for bench.py's two other solve
+   legs: the population (bench.py's draws, one planet per column) on
+   ``"cuda"`` and ``"eager"``, and the headline on phase 4e's
+   equilibrium chemistry on all four engines.
 
-The second-to-last line is a JSON record of the kernels (time, plain
-twin, bound and what bounds it, library call, launches on the main
-path); the last line is ``{"ok": true, "device": {...}}``.
+(4d and 4e run after 4c.)  The second-to-last line is a JSON record of
+the kernels (time, plain twin, bound and what bounds it, library call,
+launches on the main path, and on the population and chemistry legs);
+the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -453,6 +477,113 @@ def phase_sweep_variants():
     return out
 
 
+def population_draws(n, seed=1):
+    """bench.py's population leg (`bench.py:174-178`): a/R* U(4, 9), g
+    U(10, 50) m s^-2, T* U(4500, 6300) K, alpha U(0.8, 1.5), from
+    ``RandomState(1)``."""
+    rng = np.random.RandomState(seed)
+    return (rng.uniform(4.0, 9.0, n), rng.uniform(10.0, 50.0, n),
+            rng.uniform(4500.0, 6300.0, n), rng.uniform(0.8, 1.5, n))
+
+
+def population_args(grid, n):
+    """The solver's constants and parameters for ``n`` planets of
+    :func:`population_draws`, one per column: per-planet F_toa (n, W), g
+    (CGS) and alpha (n,), built once as ``solve_population`` builds them,
+    the grid's m_bar shared."""
+    from frei_tpu_torch.stellar.irradiation import f_toa_np
+    a_rstar, g_si, t_star, alpha = population_draws(n)
+    lam = np.asarray(grid.rt_grid.lam_cm)
+    consts, params, kappa_fn = solver_args(grid)
+
+    def dev(x):
+        return torch.as_tensor(x, dtype=grid.dtype, device=grid.device)
+    f_toa = dev(np.stack([f_toa_np(lam, t, a)
+                          for t, a in zip(t_star, a_rstar)]))
+    return (consts._replace(F_toa=f_toa),
+            params._replace(g=dev(g_si * 100.0), alpha=dev(alpha)), kappa_fn)
+
+
+def phase_population_sweeps():
+    """Phase 3f: the sweep kernels with per-column constants (population
+    mode: dtau factors (B, L-1) and F_toa (B, W) read at a row stride)
+    against their twins, fused and materialized, every third column
+    frozen: float64 at 64 columns (rtol 1e-10), float32 at 8192 (phase
+    3's tolerances); eight copies of one planet against the shared-planet
+    kernels, bit for bit; the per-column sweep's time beside the shared
+    one's (float32, 8192 columns, fused, no column frozen, in turns
+    shared, per-column, per-column, shared).  Returns {direction: ms}."""
+    from frei_tpu_torch.ops import sweep_cuda as S
+    for dtype, n, rtol, t_rtol, atol_frac in (
+            (torch.float64, PARITY64_COLUMNS, 1e-10, 1e-10, 1e-13),
+            (torch.float32, N_COLUMNS, 1e-4, 1e-5, 1e-7)):
+        grid = make_grid(dtype)
+        T, Fu, Fd, kaps, done, _ = sweep_inputs(grid, n)
+        consts, params, _ = population_args(grid, n)
+        params = params._replace(g=params.g[:, None],
+                                 alpha=params.alpha[:, None])
+        sc = S.make_sweep_consts(consts, params)
+        assert tuple(sc.dtf_emit.shape) == (n, N_LAYERS - 1)
+        assert tuple(sc.f_toa.shape) == (n, N_BINS)
+        p = grid._consts.pressures
+        for name, wrap, plain, epi in (
+                ("emit", S.emit_kernel, S.emit_plain, S.emit_epilogue),
+                ("absorb", S.absorb_kernel, S.absorb_plain,
+                 S.absorb_epilogue)):
+            kws = ({}, {"with_dtaus": True}) if name == "emit" else ({},)
+            for form, kap in kaps.items():
+                for kw in kws:
+                    got = wrap(T, Fu, Fd, kap, sc, done, **kw)
+                    torch.cuda.synchronize()
+                    ref = plain(T, Fu, Fd, kap, sc, done, **kw)
+                    label = (f"population {name + ('+dtaus' if kw else '')}"
+                             f" {form} {str(dtype)} B={n}")
+                    hold_sweep(label, got, ref, T, p, params, epi,
+                               name == "emit", rtol, t_rtol, atol_frac)
+
+    # eight copies of the hot Jupiter: the shared kernels' bits
+    grid = make_grid(torch.float32)
+    T, Fu, Fd, kaps, done, params = sweep_inputs(grid, 8)
+    c = grid._consts
+    sc = S.make_sweep_consts(c, params)
+    sc8 = S.make_sweep_consts(
+        c._replace(F_toa=c.F_toa.expand(8, -1)),
+        params._replace(g=params.g.expand(8, 1)))
+    for form, kap in kaps.items():
+        for wrap, kw in ((S.emit_kernel, {}), (S.emit_kernel,
+                                               {"with_dtaus": True}),
+                         (S.absorb_kernel, {})):
+            a = wrap(T, Fu, Fd, kap, sc, done, **kw)
+            b = wrap(T, Fu, Fd, kap, sc8, done, **kw)
+            assert all(torch.equal(x, y) for x, y in zip(a, b)), \
+                f"identical planets differ from the shared sweep ({form})"
+    log("[population] eight identical planets: every sweep output equals "
+        "the shared-planet kernel's bit for bit (fused and materialized, "
+        "emit with and without dtaus, absorb)")
+
+    # the per-column sweep's time beside the shared one's
+    grid = make_grid(torch.float32)
+    T, Fu, Fd, kaps, done, params = sweep_inputs(grid, N_COLUMNS)
+    live = torch.zeros_like(done)
+    consts, pparams, _ = population_args(grid, N_COLUMNS)
+    sc = S.make_sweep_consts(grid._consts, params)
+    scp = S.make_sweep_consts(consts, pparams._replace(g=pparams.g[:, None]))
+    kap = kaps["fused"]
+    out = {}
+    for name, wrap in (("emit", S.emit_kernel), ("absorb", S.absorb_kernel)):
+        times = {"shared": [], "per-column": []}
+        for which in ("shared", "per-column", "per-column", "shared"):
+            s = sc if which == "shared" else scp
+            times[which].append(time_ms(
+                lambda s=s: wrap(T, Fu, Fd, kap, s, live), 10))
+        out[name] = {k: float(np.mean(v)) for k, v in times.items()}
+        log(f"[timing] {name:6s} fused population (per-column dtf, F_toa) "
+            f"{', '.join(f'{x:.4f}' for x in times['per-column'])} ms, "
+            f"shared planet {', '.join(f'{x:.4f}' for x in times['shared'])}"
+            f" ms (B={N_COLUMNS}, float32, in turns S, P, P, S)")
+    return out
+
+
 def sweep_digest():
     """sha256 of the sweep kernels' outputs on phase 3's float32 inputs
     (fused and materialized opacity, every third column frozen): equal
@@ -789,6 +920,236 @@ def phase_iteration_parity():
     it_rec["flops"] = 2 * SWEEP_FLOPS * N_COLUMNS * (N_LAYERS - 1) * N_BINS
     rec["flops"] = N_ITERS * it_rec["flops"]
     return {"iteration": it_rec, "loop": rec}
+
+
+# the isotopologues of the JAX package's multi-species equilibrium test
+# (`tests/test_sweep_pallas.py:357`)
+CHEM_SPECIES = ("1H2-16O", "23Na", "48Ti-16O")
+
+
+class FirstSpecies:
+    """A layer-factored chemistry model cut to its first ``n`` species
+    (the whole-iteration kernels read only ``layer_ln_mmr_tables``)."""
+
+    def __init__(self, chem, n):
+        self.chem, self.n = chem, n
+
+    def supports_layer_factoring(self):
+        return True
+
+    def layer_ln_mmr_tables(self, pressures_cgs):
+        grid, tab = self.chem.layer_ln_mmr_tables(pressures_cgs)
+        return grid, tab[..., :self.n].contiguous()
+
+    def layer_mmr_interp(self, pressures_cgs):
+        fn = self.chem.layer_mmr_interp(pressures_cgs)
+        return lambda temps: fn(temps)[:self.n]
+
+
+def chem_stack(grid, species, seed=13):
+    """A seeded stack of ``species`` on the run grid's (T, P) points, with
+    distinct T and P dependence (no stores are written)."""
+    from frei_tpu_torch.opacity.tables import make_opacity_stack
+    g = grid.rt_grid
+    rng = np.random.RandomState(seed)
+    shape = (N_LAYERS, N_LAYERS, N_BINS)
+    tdep = np.linspace(0.5, 1.5, N_LAYERS)[:, None, None]
+    pdep = np.linspace(0.8, 1.2, N_LAYERS)[None, :, None]
+    return make_opacity_stack(
+        {iso: (rng.uniform(0.1, 1.0, shape) * tdep * pdep * 10.0 ** k,
+               g.init_temperatures, g.pressures_bar)
+         for k, iso in enumerate(species)}, dtype=grid.dtype,
+        device=grid.device)
+
+
+def phase_iteration_chemistry():
+    """Phase 3b on equilibrium chemistry: ``FastChemTorch`` table mode for
+    the three species of :data:`CHEM_SPECIES` (the default 64 x 32 table,
+    built on the card), its layer ln-MMR tables (nTc = 64) in the
+    whole-iteration kernels' pack for one species and for three, a seeded
+    stack of those species; float64 at 64 columns, every third frozen:
+    one ``rc_iteration`` step and a one-iteration ``rc_loop``, each held
+    against the twin by :func:`hold_step` (rtol 1e-10).  Returns the
+    build's wall and the errors per kernel."""
+    from frei_tpu_torch.chemistry.fastchem import FastChemTorch
+    from frei_tpu_torch.opacity.hotpath import build_kappa_model
+    from frei_tpu_torch.ops import iteration_cuda as IC
+    t0 = time.perf_counter()
+    chem = FastChemTorch(CHEM_SPECIES, 2.4 * 1.67262192369e-24)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    log(f"[chemistry] FastChemTorch table of {CHEM_SPECIES} (64 T x 32 P) "
+        f"built on the card in {wall:.2f} s, residual "
+        f"{chem.table_residual:.3e}")
+    grid = make_grid(torch.float64)
+    c = grid._consts
+    recs = {k: {"max_abs_err": 0.0, "err_over_tol": 0.0}
+            for k in ("iteration", "loop")}
+    for S_ in (1, 3):
+        stack = chem_stack(grid, CHEM_SPECIES[:S_])
+        model = chem if S_ == 3 else FirstSpecies(chem, S_)
+        kappa = build_kappa_model(stack, model, c.pressures, c.sigma_scat)
+        T, Fu, Fd, _, done, params = sweep_inputs(grid, PARITY64_COLUMNS)
+        pack = IC.make_iteration_pack(c, params, *kappa.iteration_hook)
+        assert tuple(pack.c_tgrid.shape) == (64,), pack.c_tgrid.shape
+        assert tuple(pack.c_tab.shape) == (N_LAYERS, S_, 64)
+        label = f"equilibrium S={S_} nTc=64 float64 B={PARITY64_COLUMNS}"
+        got = IC.rc_iteration_kernel(T, Fu, Fd, done, pack, params,
+                                     with_sums=True)
+        torch.cuda.synchronize()
+        err, q = hold_step(f"iteration {label}", got, T, Fu, Fd, done, pack,
+                           params, 1e-10, 1e-10, 1e-13)
+        recs["iteration"] = {"max_abs_err": max(
+            recs["iteration"]["max_abs_err"], err), "err_over_tol": max(
+            recs["iteration"]["err_over_tol"], q)}
+        tout, fu, fd, hist, maxdt, n_it, conv, sums = IC.rc_loop_kernel(
+            T, Fu, Fd, pack, params, 1, 10 ** 6, 0.0, with_sums=True)
+        torch.cuda.synchronize()
+        assert torch.equal(tout, hist[:, 1]) and (n_it == 1).all()
+        err, q = hold_step(f"loop 1 iteration {label}",
+                           (hist[:, 0], fu, fd, tout, None, sums), T, Fu, Fd,
+                           None, pack, params, 1e-10, 1e-10, 1e-13,
+                           max_dT=maxdt[:, 0])
+        recs["loop"] = {"max_abs_err": max(recs["loop"]["max_abs_err"], err),
+                        "err_over_tol": max(recs["loop"]["err_over_tol"], q)}
+    return wall, recs
+
+
+# the population of the JAX package's parallel tests
+# (`tests/test_parallel.py:239-249`): a/R*, m_bar [m_p], g [m/s^2], T*, alpha
+POPULATION8 = ((5.0, 2.4, 24.79, 5800.0, 1.0), (9.0, 2.4, 10.0, 4500.0, 1.5),
+               (6.4, 2.4, 50.0, 6300.0, 1.0), (4.0, 2.4, 15.0, 5000.0, 0.8),
+               (7.5, 2.4, 35.0, 6000.0, 1.2), (5.5, 2.4, 20.0, 5500.0, 1.0),
+               (8.2, 2.4, 12.0, 4800.0, 1.4), (6.0, 2.4, 28.0, 5900.0, 0.9))
+
+
+def phase_population():
+    """Phase 4d: ``solve_population`` of the eight planets of
+    :data:`POPULATION8`, float64, 3 iterations, on the ``"cuda"`` engine
+    (its sweep kernels' launches counted); each column against a
+    shared-planet ``Grid`` solve of its planet on ``"cuda"`` (rtol 1e-12;
+    bit-equal counted) and against ``"eager"`` (rtol 1e-9)."""
+    from frei_tpu_torch import Grid, Planet
+    from frei_tpu_torch.ops import sweep_cuda as S
+    from frei_tpu_torch.parallel import solve_population
+    from frei_tpu_torch.rt.solver import SolverConfig, solve_rc_batched
+    planets = [Planet(*p) for p in POPULATION8]
+    grid = make_grid(torch.float64)
+    rng = np.random.RandomState(11)
+    T0 = torch.as_tensor(np.asarray(grid.init_temperatures)[None, :]
+                         * rng.uniform(0.9, 1.1, (8, 1)),
+                         dtype=torch.float64, device=grid.device)
+    cfg = SolverConfig(3, engine="cuda")
+    n0 = (S.emit_kernel.launches, S.absorb_kernel.launches)
+    res = solve_population(T0, grid, planets, cfg)
+    torch.cuda.synchronize()
+    n1 = (S.emit_kernel.launches - n0[0], S.absorb_kernel.launches - n0[1])
+    assert n1[0] > 0 and n1[1] > 0, "the population bypassed the kernels"
+    eager = solve_population(T0, grid, planets, cfg._replace(engine="eager"))
+    equal = 0
+    for c, p in enumerate(planets):
+        g1 = Grid(p, n_wl_bins=N_BINS, n_layers=N_LAYERS, T_ref=2400.0,
+                  dtype=torch.float64, device="cuda")
+        g1.load_opacities(opacities=grid.opacities)
+        one = solve_rc_batched(T0[c:c + 1], g1._consts, p.physics_params(),
+                               g1._kappa_fn, cfg)
+        same = all(torch.equal(getattr(res, f)[c], getattr(one, f)[0])
+                   for f in ("flux", "final_temps", "F_up", "F_down",
+                             "dtaus", "temp_history"))
+        equal += same
+        for f in ("flux", "final_temps", "dtaus"):
+            check_close(f"population planet {c} {f} vs its own grid",
+                        getattr(res, f)[c], getattr(one, f)[0], 1e-12, 0.0)
+            check_close(f"population planet {c} {f} vs eager",
+                        getattr(res, f)[c], getattr(eager, f)[c], 1e-9,
+                        1e-12 * float(getattr(eager, f)[c].abs().max()))
+        assert torch.equal(res.n_iterations[c], one.n_iterations[0])
+    fr = max(rel_err(res.flux[c], eager.flux[c])[0] for c in range(8))
+    log(f"[population] solve_population of {len(planets)} planets, float64, "
+        f"3 iterations on cuda (launches emit {n1[0]} absorb {n1[1]}): "
+        f"{equal} of {len(planets)} columns bit-equal to their planet's own "
+        f"Grid solve on cuda (all within rtol 1e-12); flux vs eager max rel "
+        f"{fr:.3e} (rtol 1e-9)")
+
+
+# the reference's chemistry test profile (`tests/test_fastchem.py:19-24`)
+CHEM_GOLDEN_MAX_VMR = {"H2O1": 3e-4, "Na": 3e-6, "K": 1.8e-7, "O1Ti1": 1.4e-7}
+
+
+def phase_chemistry():
+    """Phase 4e: ``Grid(planet)`` with no device named, the fixture and
+    ``chemistry="equilibrium"`` (the default 64 x 32 table, built on the
+    grid's device), its build's wall; float64 solves of 64 columns x 3
+    iterations on that chemistry on ``"cuda"``, ``"iteration"`` and
+    ``"loop"`` against ``"eager"`` (flux rtol 1e-7 for ``"cuda"``, 1e-4
+    for the others: their kernels interpolate the float32 ln-MMR tables at
+    the solve's precision); the four maximum-VMR goldens of the exact
+    solver on the card.  Returns (the chemistry model, its build wall)."""
+    from frei_tpu_torch import Grid, Planet, load_example_opacity
+    from frei_tpu_torch.chemistry.fastchem import (FastChemTorch,
+                                                   equilibrium_log_pressures,
+                                                   load_chem_table)
+    from frei_tpu_torch.rt.solver import SolverConfig, solve_rc_batched
+    wrappers = kernel_wrappers()
+    grid = Grid(Planet.from_hot_jupiter(), T_ref=2400.0)
+    assert grid.device.type == "cuda", grid.device
+    stack = load_example_opacity(grid, scale_factor=1.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grid.load_opacities(opacities=stack, chemistry="equilibrium")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    chem = grid.chemistry
+    assert isinstance(chem, FastChemTorch) and chem.mode == "table"
+    assert tuple(chem._tab_lnvmr.shape) == (64, 32, 1)
+    log(f"[chemistry] Grid(planet).load_opacities(chemistry=\"equilibrium\")"
+        f": the default 64 x 32 table built on the card in {wall:.2f} s "
+        f"(residual {chem.table_residual:.3e})")
+
+    g64 = Grid(Planet.from_hot_jupiter(), n_wl_bins=N_BINS,
+               n_layers=N_LAYERS, T_ref=2400.0, dtype=torch.float64,
+               device="cuda")
+    g64.load_opacities(opacities=load_example_opacity(
+        g64, scale_factor=1.0, dtype=torch.float64), chemistry=chem)
+    T0 = columns(g64, PARITY64_COLUMNS, seed=2)
+    args = solver_args(g64)
+    ref = solve_rc_batched(T0, *args, SolverConfig(3, engine="eager"))
+    kinds = {"cuda": ("emit_sweep", "absorb_sweep"),
+             "iteration": ("rc_iteration",), "loop": ("rc_loop",)}
+    for engine, (f_rtol, t_rtol) in (("cuda", (1e-7, 1e-8)),
+                                     ("iteration", (1e-4, 1e-5)),
+                                     ("loop", (1e-4, 1e-5))):
+        for w in wrappers.values():
+            w.launches = 0
+        got = solve_rc_batched(T0, *args, SolverConfig(3, engine=engine))
+        torch.cuda.synchronize()
+        assert all(wrappers[k].launches > 0 for k in kinds[engine]), engine
+        qf = check_close(f"equilibrium {engine} flux", got.flux, ref.flux,
+                         f_rtol, 1e-9 * float(ref.flux.abs().max()))
+        qt = check_close(f"equilibrium {engine} temps", got.final_temps,
+                         ref.final_temps, t_rtol, 0.0)
+        log(f"[chemistry] float64 {PARITY64_COLUMNS}-column 3-iteration "
+            f"solve on equilibrium chemistry, {engine} vs eager: flux max rel "
+            f"{rel_err(got.flux, ref.flux)[0]:.3e} (rtol {f_rtol}, err/bound "
+            f"{qf:.3f}), temps max rel "
+            f"{rel_err(got.final_temps, ref.final_temps)[0]:.3e} (rtol "
+            f"{t_rtol}, err/bound {qt:.3f})")
+    k = g64._kappa_fn(T0, g64._consts.pressures)[0, :, N_BINS // 2]
+    assert float((k.max() - k.min()) / k.mean()) > 1e-3, "constant chemistry"
+
+    # the goldens: the exact solver on the card, the reference's profile
+    P_bar = np.logspace(-6, 2, 100)
+    table = load_chem_table()
+    ln_p, _ = equilibrium_log_pressures(
+        table, torch.tensor(2400.0 * (P_bar / 0.1) ** 0.1, device="cuda"),
+        torch.tensor(P_bar, device="cuda"))
+    for hill, want in CHEM_GOLDEN_MAX_VMR.items():
+        i = table.species_index(hill)
+        got = float((torch.exp(ln_p[:, i]).cpu() / torch.tensor(P_bar)).max())
+        log(f"[chemistry] max VMR of {hill} over the reference profile, exact "
+            f"solve on the card: {got:.4e} (golden {want:.1e}, rtol 0.1)")
+        assert abs(got - want) <= 0.1 * want, (hill, got, want)
+    return chem, wall
 
 
 def phase_goldens_whole(engine):
@@ -1336,15 +1697,19 @@ def kernel_wrappers():
             "resort_rebin": RC.rebin_kernel}
 
 
-def phase_headline(engines=("loop", "iteration", "cuda", "eager"), runs=3):
-    """Each engine's headline solve: one warm-up and ``runs`` timed
+def phase_headline(engines=("loop", "iteration", "cuda", "eager"), runs=3,
+                   leg="headline", args=None):
+    """Each engine's solve of the leg: one warm-up and ``runs`` timed
     solves, every launch count set to 0 just before and read just
-    after."""
+    after.  ``args`` (consts, params, kappa_fn) default to the headline's
+    grid (:func:`make_grid`); the population and chemistry legs pass
+    theirs."""
     from frei_tpu_torch.rt.solver import SolverConfig, solve_rc_batched
     wrappers = kernel_wrappers()
     grid = make_grid(torch.float32)
     T0 = columns(grid, N_COLUMNS)
-    args = solver_args(grid)
+    if args is None:
+        args = solver_args(grid)
     res = {}
     for engine in engines:
         cfg = SolverConfig(n_timesteps=N_ITERS, n_zero_crossings=10 ** 6,
@@ -1372,7 +1737,7 @@ def phase_headline(engines=("loop", "iteration", "cuda", "eager"), runs=3):
                            rate=N_COLUMNS * N_BINS / wall,
                            launches=launches, flux=out.flux.clone(),
                            peak_gb=peak_gb)
-        log(f"[headline] engine={engine:9s} {N_COLUMNS} columns x "
+        log(f"[{leg}] engine={engine:9s} {N_COLUMNS} columns x "
             f"{N_BINS} bins x {N_LAYERS} layers x {N_ITERS} iterations "
             f"float32: walls {', '.join(f'{w:.4f}' for w in walls)} s, "
             f"{res[engine]['rate']:,.0f} columns*bins/s (best), peak "
@@ -1382,17 +1747,21 @@ def phase_headline(engines=("loop", "iteration", "cuda", "eager"), runs=3):
                  "iteration": ("rc_iteration", "emit_sweep"),
                  "loop": ("rc_loop", "emit_sweep")}
     for engine, names in main_path.items():
+        if engine not in res:
+            continue
         got = res[engine]["launches"]
         assert all(got[k] > 0 for k in names), \
-            f"engine {engine} bypassed its kernels: {got}"
+            f"{leg}: engine {engine} bypassed its kernels: {got}"
     if "eager" not in res:
         return res
     assert not any(res["eager"]["launches"].values()), \
-        "eager engine ran a kernel"
+        f"{leg}: eager engine ran a kernel"
     ref = res["eager"]["flux"]
-    for engine in ("loop", "iteration", "cuda"):
+    for engine in main_path:
+        if engine not in res:
+            continue
         d = (res[engine]["flux"] - ref).abs().max()
-        log(f"[headline] {engine} vs eager after {N_ITERS} unconverged "
+        log(f"[{leg}] {engine} vs eager after {N_ITERS} unconverged "
             f"float32 iterations: max |dflux| / max flux "
             f"{float(d / ref.abs().max()):.3e} (trajectories diverge "
             f"chaotically in float32; not asserted)")
@@ -1442,6 +1811,7 @@ def main(argv):
         phase_parity(torch.float32, N_COLUMNS, 1e-4, 1e-5, 1e-7,
                      timing=True)
         phase_sweep_variants()
+        phase_population_sweeps()
         return
     if argv == ["--iteration"]:
         # the whole-iteration kernels alone: build, parity, times and
@@ -1450,6 +1820,7 @@ def main(argv):
                       for line in ptxas_summary(IC.build())))
         phase_iteration_parity()
         phase_iteration_variants()
+        phase_iteration_chemistry()
         return
     if argv:
         sys.exit(f"chip_smoke: unknown arguments {argv}")
@@ -1474,9 +1845,13 @@ def main(argv):
                         timing=True)
     # phase 3d: where a sweep's time goes (the kernel's variants)
     phase_sweep_variants()
+    # phase 3f: the sweep kernels with per-column constants (population)
+    pop_ms = phase_population_sweeps()
 
-    # phase 3b: the whole-iteration kernels against their twins
+    # phase 3b: the whole-iteration kernels against their twins, on the
+    # mock chemistry's tables and on equilibrium tables (nTc = 64)
     whole = phase_iteration_parity()
+    chem_build_3b, whole_chem = phase_iteration_chemistry()
     # phase 3e: where an RC step's time goes (the kernel's variants)
     phase_iteration_variants()
     # phase 3c: the opacity plane's kernels against their twins
@@ -1497,33 +1872,64 @@ def main(argv):
     log(f"[etl] on {smi}: load_opacities walls native "
         + ", ".join(f"{w:.4f}" for w in etl["walls"]["native"]) + " s, cuda "
         + ", ".join(f"{w:.4f}" for w in etl["walls"]["cuda"]) + " s")
+    # phase 4d: a population of eight planets on the sweep kernels
+    phase_population()
+    # phase 4e: equilibrium chemistry through Grid(planet)
+    chem, chem_build = phase_chemistry()
+    log(f"[chemistry] on {smi}: default table builds on the card "
+        f"{chem_build_3b:.2f} s (phase 3b), {chem_build:.2f} s (phase 4e)")
 
-    # phase 5: the headline solve
+    # phase 5: the headline solve, then the population leg (bench.py's
+    # draws) and the chemistry leg (the headline on equilibrium chemistry)
     head = phase_headline()
     log(f"[headline] on {smi}: " + ", ".join(
         f"{e} {head[e]['rate']:,.0f}" for e in head) + " columns*bins/s")
+    grid = make_grid(torch.float32)
+    pop = phase_headline(("cuda", "eager"), leg="population",
+                         args=population_args(grid, N_COLUMNS))
+    grid.load_opacities(opacities=grid.opacities, chemistry=chem)
+    chem_leg = phase_headline(leg="chemistry", args=solver_args(grid))
+    del grid
+    for leg, r in (("population", pop), ("chemistry", chem_leg)):
+        log(f"[{leg}] on {smi}: " + ", ".join(
+            f"{e} {r[e]['rate']:,.0f} columns*bins/s, peak "
+            f"{r[e]['peak_gb']:.2f} GB" for e in r))
 
     # each kernel: its time and its plain twin's at the main path's shapes,
     # the least time the card could take for the same work (bytes moved
     # over the HBM rate or float operations over the FP32 peak, whichever
     # is larger), one library call's time where one PyTorch call computes
     # the kernel's body, and the launches of the main path's run
+    # (the kernels on the new legs also carry their launches there: the
+    # population leg's "cuda" solves, the chemistry leg's solves on the
+    # kernel's own engine)
     flops_sweep = SWEEP_FLOPS * N_COLUMNS * (N_LAYERS - 1) * N_BINS
     rows = []
     for k in ("emit", "absorb"):
         r = recs[k]
-        rows.append((f"{k}_sweep", "sweep.cu",
+        name_ = f"{k}_sweep"
+        rows.append((name_, "sweep.cu",
                      "frei_tpu/ops/sweep_pallas.py:"
                      + ("428" if k == "emit" else "484"),
-                     head["cuda"]["launches"][f"{k}_sweep"],
+                     head["cuda"]["launches"][name_],
                      dict(r, ms=r["ms_fused"], plain_ms=r["plain_ms_fused"],
                           bytes=r["bytes_fused"], flops=flops_sweep),
                      {"ms_materialized": r["ms_materialized"],
-                      "plain_ms_materialized": r["plain_ms_materialized"]}))
+                      "plain_ms_materialized": r["plain_ms_materialized"],
+                      "ms_population": pop_ms[k]["per-column"],
+                      "launches_population":
+                          pop["cuda"]["launches"][name_],
+                      "launches_chemistry":
+                          chem_leg["cuda"]["launches"][name_]}))
     for k, line in (("iteration", 163), ("loop", 297)):
-        rows.append((f"rc_{k}", "iteration.cu",
+        name_ = f"rc_{k}"
+        rows.append((name_, "iteration.cu",
                      f"frei_tpu/ops/iteration_pallas.py:{line}",
-                     head[k]["launches"][f"rc_{k}"], whole[k], {}))
+                     head[k]["launches"][name_], whole[k],
+                     {"launches_chemistry":
+                          chem_leg[k]["launches"][name_],
+                      "err_over_tol_chemistry":
+                          whole_chem[k]["err_over_tol"]}))
     for k, name_, src, replaces in (
             ("kappa", "kappa_lookup", "kappa.cu",
              "frei_tpu/ops/kappa_pallas.py:48"),

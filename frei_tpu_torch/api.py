@@ -17,6 +17,7 @@ import torch
 
 from . import constants as const
 from . import units
+from .chemistry.fastchem import FastChemTorch
 from .chemistry.mocks import MockChemistry
 from .diag.telemetry import SolveMetrics
 from .grids import RTGrid, make_rt_grid
@@ -100,6 +101,12 @@ class Spectrum:
     @property
     def flux(self):
         return units.as_quantity(self.flux_cgs, "erg / (s cm3)")
+
+    def to_spectrum1d(self):
+        """An actual ``specutils.Spectrum1D`` (needs the optional
+        specutils and astropy packages)."""
+        from specutils import Spectrum1D
+        return Spectrum1D(flux=self.flux, spectral_axis=self.spectral_axis)
 
 
 class Grid:
@@ -218,11 +225,17 @@ class Grid:
         "eager", "native" or "cuda" (the CUDA kernel, on the grid's
         device); see ``opacity.etl``.
 
-        ``chemistry`` is None or "mock" for the constant-VMR mock, or
-        any object with an ``mmr(temps, pressures_cgs)`` method; None on
-        a grid that already has a model keeps it (a reload must not
-        downgrade the chemistry), "mock" resets it.  The equilibrium
-        chemistry models are not ported yet.
+        ``chemistry`` selects the mixing-ratio model: None or "mock" for
+        the constant-VMR mock (the reference's fallback without
+        pyfastchem, `chemistry.py:143-153`), "equilibrium" for the
+        FastChem-equivalent solver in table mode
+        (``chemistry.fastchem.FastChemTorch``: a 64 x 32 (T, P) table
+        solved once here on the grid's device, read by interpolation;
+        42 s on an H100), "equilibrium-exact" for
+        the exact solver at every call, or any object with an
+        ``mmr(temps, pressures_cgs)`` method.  None on a grid that
+        already has a model keeps it (a reload must not downgrade the
+        chemistry); "mock" resets it.
         """
         if (self.opacities is None and opacities is None) or force_reload:
             self.opacities = binned_opacity_stack(
@@ -245,11 +258,13 @@ class Grid:
         if self.chemistry is None or self.chemistry == "mock":
             self.chemistry = MockChemistry(stack.masses_g, self.planet.m_bar)
         elif isinstance(self.chemistry, str):
-            if self.chemistry in ("equilibrium", "equilibrium-exact"):
-                raise NotImplementedError(
-                    f"chemistry={self.chemistry!r} is ROADMAP queue 1 "
-                    "item 10")
-            raise ValueError(f"unknown chemistry model {self.chemistry!r}")
+            modes = {"equilibrium": "table", "equilibrium-exact": "exact"}
+            if self.chemistry not in modes:
+                raise ValueError(
+                    f"unknown chemistry model {self.chemistry!r}")
+            self.chemistry = FastChemTorch(stack.species, self.planet.m_bar,
+                                           mode=modes[self.chemistry],
+                                           build_device=self.device)
         g = self.rt_grid
         self._consts = RTConstants(
             lam_cm=self._tensor(g.lam_cm),

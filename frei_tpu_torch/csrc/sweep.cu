@@ -138,7 +138,7 @@ __host__ __device__ constexpr int min_blocks() {
 }
 
 struct SweepArgs {
-  const void* dtf;      // (L-1,) dtau factor per swept layer
+  const void* dtf;      // (L-1,) dtau factor per swept layer, or (B, L-1)
   const uint8_t* done;  // (B,) freeze flags, or null
   const void* temps;    // (B, L)
   const void* ohs;      // (B, L, K) weight rows, or null (materialized form)
@@ -149,13 +149,16 @@ struct SweepArgs {
   const void* c1;       // (W,) 2 h c^2 / lam^5
   const void* xrow;     // (W,) h c / (k lam)
   const void* sigma;    // (W,) scattering opacity
-  const void* f_toa;    // (W,) top-of-atmosphere flux (emit only)
+  const void* f_toa;    // (W,) or (B, W) top-of-atmosphere flux (emit only)
   const void* tw;       // (W,) trapezoid weights
   void* F_up_out;       // (B, L, W)
   void* F_down_out;     // (B, L, W)
   void* sums;           // (B, 4, L-1)
   void* dtaus;          // (B, L, W) optical depths (emit only), or null
   int B, L, W, K;
+  // rows of dtf and f_toa a column moves on: 0 for one shared planet, L-1
+  // and W for a population (one planet per column)
+  int dtf_stride, ftoa_stride;
   int depth;  // layers the ring runs ahead of the layer being computed: 0
               // (one slot) or 1 (two slots)
   int rows;   // rows per ring slot: the stale flux row, then kappa rows
@@ -284,9 +287,10 @@ __device__ __forceinline__ void setup(const SweepArgs& a, int b, const Smem<T>& 
                                       bool ok[NPT], T c1[NPT], T xr[NPT], T sg[NPT],
                                       T tw[NPT]) {
   const T* Tb = static_cast<const T*>(a.temps) + (size_t)b * a.L;
+  const T* dtf = static_cast<const T*>(a.dtf) + (size_t)b * a.dtf_stride;
   for (int l = threadIdx.x; l < a.L; l += blockDim.x) {
     sm.inv_t[l] = T(1) / Tb[l];
-    if (l < a.L - 1) sm.dtf[l] = static_cast<const T*>(a.dtf)[l];
+    if (l < a.L - 1) sm.dtf[l] = dtf[l];
   }
 #pragma unroll
   for (int j = 0; j < NPT; ++j) {
@@ -514,7 +518,7 @@ __device__ __forceinline__ void emit_column(const SweepArgs& a, int b) {
   T* Fdo = static_cast<T*>(a.F_down_out) + slab;
   T* S = static_cast<T*>(a.sums) + (size_t)b * 4 * n;
   T* tau = TAU ? static_cast<T*>(a.dtaus) + slab : nullptr;
-  const T* ftoa = static_cast<const T*>(a.f_toa);
+  const T* ftoa = static_cast<const T*>(a.f_toa) + (size_t)b * a.ftoa_stride;
   const bool frozen = a.done != nullptr && a.done[b] != 0;
 
   extern __shared__ __align__(16) unsigned char smem[];
@@ -859,10 +863,11 @@ int launch(const void* dtf, const void* done, const void* temps, const void* ohs
            const void* tab, const void* kappa, const void* F_up, const void* F_down,
            const void* c1, const void* xrow, const void* sigma, const void* f_toa,
            const void* tw, void* F_up_out, void* F_down_out, void* sums, void* dtaus,
-           int B, int L, int W, int K, int threads, int npt, int depth, int rows, int smem,
-           int mode, void* stream) {
+           int B, int L, int W, int K, int dtf_stride, int ftoa_stride, int threads, int npt,
+           int depth, int rows, int smem, int mode, void* stream) {
   if (B <= 0) return 0;
   if (L < 3 || W < 1 || (ohs && K < 1) || threads < 32 || threads % 32 ||
+      (dtf_stride != 0 && dtf_stride != L - 1) || (ftoa_stride != 0 && ftoa_stride != W) ||
       threads > (npt <= 4 ? max_threads<4>() : max_threads<8>()) ||
       (long long)threads * npt < W || depth < 0 || depth > 1 || rows < 1 ||
       (!EMIT && dtaus))
@@ -889,6 +894,8 @@ int launch(const void* dtf, const void* done, const void* temps, const void* ohs
   a.L = L;
   a.W = W;
   a.K = K;
+  a.dtf_stride = dtf_stride;
+  a.ftoa_stride = ftoa_stride;
   a.depth = depth;
   a.rows = rows;
   a.wpad = threads * npt;
@@ -917,11 +924,13 @@ int launch(const void* dtf, const void* done, const void* temps, const void* ohs
                       const void* F_up, const void* F_down, const void* c1,            \
                       const void* xrow, const void* sigma, const void* f_toa,          \
                       const void* tw, void* F_up_out, void* F_down_out, void* sums,    \
-                      void* dtaus, int B, int L, int W, int K, int threads, int npt,   \
-                      int depth, int rows, int smem, int mode, void* stream) {         \
+                      void* dtaus, int B, int L, int W, int K, int dtf_stride,         \
+                      int ftoa_stride, int threads, int npt, int depth, int rows,      \
+                      int smem, int mode, void* stream) {                              \
     return launch<T, EMIT>(dtf, done, temps, ohs, tab, kappa, F_up, F_down, c1, xrow,  \
                            sigma, f_toa, tw, F_up_out, F_down_out, sums, dtaus, B, L,  \
-                           W, K, threads, npt, depth, rows, smem, mode, stream);       \
+                           W, K, dtf_stride, ftoa_stride, threads, npt, depth, rows,   \
+                           smem, mode, stream);                                        \
   }
 
 FREI_SWEEP_LAUNCHER(frei_emit_sweep_f32, float, true)

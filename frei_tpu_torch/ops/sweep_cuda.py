@@ -72,31 +72,41 @@ VARIANTS = {"sweep": 0, "no_sums": 1, "copy": 3, "arith": 4, "tma": 8,
 
 
 class SweepConsts(NamedTuple):
-    """Per-configuration constants of the sweep kernels, all 1-D and
-    contiguous on the solve's device, for one shared planet."""
+    """Per-configuration constants of the sweep kernels, contiguous on the
+    solve's device.  A shared planet has 1-D rows; a population (one
+    planet per column) has per-column dtau factors (B, L-1) where gravity
+    is per column, and a (B, W) F_toa where the irradiation is."""
 
-    dtf_emit: torch.Tensor    # (L-1,) (p1 - p2) / g per emit-swept layer
-    dtf_absorb: torch.Tensor  # (L-1,) the same for the absorb ordering
+    dtf_emit: torch.Tensor    # (L-1,) or (B, L-1): (p1 - p2) / g per
+    #                           emit-swept layer
+    dtf_absorb: torch.Tensor  # the same for the absorb ordering
     c1: torch.Tensor          # (W,) Planck prefactor 2 h c^2 / lam^5
     xrow: torch.Tensor        # (W,) Planck exponent scale h c / (k lam)
     sigma: torch.Tensor       # (W,) Rayleigh scattering opacity
-    f_toa: torch.Tensor       # (W,) top-of-atmosphere flux
+    f_toa: torch.Tensor       # (W,) or (B, W) top-of-atmosphere flux
     tw: torch.Tensor          # (W,) trapezoid quadrature weights
 
 
 def make_sweep_consts(consts, params: physics.PhysicsParams) -> SweepConsts:
-    """Kernel constants from the solver's ``RTConstants``.  Per-column
-    gravity or F_toa (population mode) is not ported yet."""
-    if torch.as_tensor(params.g).ndim or consts.F_toa.ndim != 1:
-        raise NotImplementedError(
-            "per-column g / F_toa in the sweep kernels (population "
-            "mode) is ROADMAP queue 1 item 9")
+    """Kernel constants from the solver's ``RTConstants``.  ``params.g``
+    is a scalar, or per column (B, 1) as the solver normalizes it; then
+    each column's dtau factors are ``(p1 - p2) / g_b``, the expression of
+    the shared rows, so that column b of a population equals a
+    shared-planet sweep of planet b bit for bit (the JAX package's
+    kernels multiply by a per-column 1/g instead, for want of a per-layer
+    lane extraction on the TPU).  ``consts.F_toa`` is (W,) or (B, W)."""
     p = consts.pressures
     lam = consts.lam_cm
     g = params.g
+    if torch.as_tensor(g).ndim:
+        g = g.reshape(-1, 1)
+        p1e, p2e = p[None, 1:], top_pressure(p)[None]
+        p1a, p2a = p[None, :-1], p[None, 1:]
+    else:
+        p1e, p2e, p1a, p2a = p[1:], top_pressure(p), p[:-1], p[1:]
     return SweepConsts(
-        dtf_emit=((p[1:] - top_pressure(p)) / g).contiguous(),
-        dtf_absorb=((p[:-1] - p[1:]) / g).contiguous(),
+        dtf_emit=((p1e - p2e) / g).contiguous(),
+        dtf_absorb=((p1a - p2a) / g).contiguous(),
         c1=(2.0 * const.h * const.c ** 2 / lam ** 5).contiguous(),
         xrow=(const.hc_over_k / lam).contiguous(),
         sigma=consts.sigma_scat.contiguous(),
@@ -108,6 +118,11 @@ def make_sweep_consts(consts, params: physics.PhysicsParams) -> SweepConsts:
 # --------------------------------------------------------------------------
 # Plain PyTorch twins
 # --------------------------------------------------------------------------
+
+def _dtf(dtf, i):
+    """Layer i's dtau factor: a scalar, or a (B, 1) column."""
+    return dtf[i] if dtf.ndim == 1 else dtf[:, i:i + 1]
+
 
 def _planck_row(sc: SweepConsts, T_col):
     """B_lambda of one layer for a (B, 1) column of temperatures."""
@@ -150,7 +165,7 @@ def emit_plain(temps, F_up, F_down, kappa, sc: SweepConsts, done=None,
     for i in range(L - 1):
         l = i + 1
         kk = k_all[:, l]
-        dtau = kk * sc.dtf_emit[i]
+        dtau = kk * _dtf(sc.dtf_emit, i)
         if with_dtaus:
             dtaus[:, l] = dtau
         om = sc.sigma / (sc.sigma + kk)
@@ -194,7 +209,7 @@ def absorb_plain(temps, F_up, F_down, kappa, sc: SweepConsts, done=None):
     sd = None
     for i in range(L - 2, -1, -1):
         kk = k_all[:, i]
-        dtau = kk * sc.dtf_absorb[i]
+        dtau = kk * _dtf(sc.dtf_absorb, i)
         om = sc.sigma / (sc.sigma + kk)
         B1 = _planck_row(sc, temps[:, i:i + 1])
         cp = two_stream_couplers_g0(dtau, om, B1, B2)
@@ -234,7 +249,7 @@ def _library():
     global _lib
     with _lib_lock:
         if _lib is None:
-            sig = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 10
+            sig = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 12
                    + [ctypes.c_void_p])
             _lib = load_library(_SOURCE, _LIB_PATH, {
                 name: sig for name in (
@@ -347,11 +362,14 @@ def _launch(direction: str, temps, F_up, F_down, kappa, sc: SweepConsts,
         kap = kappa
         shapes = {"kappa": (kappa, (B, L, W))}
     dtf = sc.dtf_emit if direction == "emit" else sc.dtf_absorb
+    # a population's rows: one per column, read at a stride of one row
+    dtf_rows = (B, L - 1) if dtf.ndim == 2 else (L - 1,)
+    ftoa_rows = (B, W) if sc.f_toa.ndim == 2 else (W,)
     shapes.update({
         "temps": (temps, (B, L)), "F_up": (F_up, (B, L, W)),
-        "F_down": (F_down, (B, L, W)), "dtf": (dtf, (L - 1,)),
+        "F_down": (F_down, (B, L, W)), "dtf": (dtf, dtf_rows),
         "c1": (sc.c1, (W,)), "xrow": (sc.xrow, (W,)),
-        "sigma": (sc.sigma, (W,)), "f_toa": (sc.f_toa, (W,)),
+        "sigma": (sc.sigma, (W,)), "f_toa": (sc.f_toa, ftoa_rows),
         "tw": (sc.tw, (W,))})
     for name, (t, shape) in shapes.items():
         if t.device != device or t.dtype != dtype:
@@ -386,8 +404,9 @@ def _launch(direction: str, temps, F_up, F_down, kappa, sc: SweepConsts,
                  sc.c1.data_ptr(), sc.xrow.data_ptr(), sc.sigma.data_ptr(),
                  sc.f_toa.data_ptr(), sc.tw.data_ptr(),
                  F_up_out.data_ptr(), F_down_out.data_ptr(),
-                 sums.data_ptr(), _ptr(dtaus), B, L, W, K, *plan, mode,
-                 stream)
+                 sums.data_ptr(), _ptr(dtaus), B, L, W, K,
+                 (L - 1) * (dtf.ndim == 2), W * (sc.f_toa.ndim == 2),
+                 *plan, mode, stream)
     if err != 0:
         raise RuntimeError(f"{direction} sweep kernel launch failed: "
                            f"CUDA error {err}")

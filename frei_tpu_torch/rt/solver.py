@@ -25,6 +25,9 @@ trajectory it would follow alone.  Engines:
 The last two need a κ model with an ``iteration_hook`` and one shared
 planet; on CPU tensors they run their kernels' plain twins.  ``"auto"``
 picks ``"cuda"`` for CUDA tensors and ``"eager"`` otherwise.
+
+``"eager"`` and ``"cuda"`` also solve a population, one planet per
+column: per-column g, alpha, m_bar and F_toa (:func:`solve_rc_batched`).
 """
 
 from __future__ import annotations
@@ -69,7 +72,7 @@ class RTConstants(NamedTuple):
     trapz_w: torch.Tensor      # (W,)
     pressures: torch.Tensor    # (L,) BOA first [barye]
     sigma_scat: torch.Tensor   # (W,) Rayleigh opacity [cm^2/g]
-    F_toa: torch.Tensor        # (W,) TOA stellar flux [erg/s/cm^3]
+    F_toa: torch.Tensor        # (W,) or (B, W) TOA stellar flux [erg/s/cm^3]
 
 
 class RTResult(NamedTuple):
@@ -133,6 +136,48 @@ def _per_column(consts, params) -> bool:
                                            params.alpha))
 
 
+def _normalize_columns(consts, params, B, dtype, device):
+    """Population mode (`frei_tpu/rt/solver.py:367-413`): any physics
+    scalar may be a (B,) tensor and ``consts.F_toa`` may be (B, W), one
+    planet per column; F_TOA is the only per-planet spectral input, and g,
+    alpha and m_bar enter the dtau factors and the timestep physics.
+    Scalars become 0-d tensors and per-column values (B, 1) column
+    vectors, in the solve's dtype on its device; size-1 values broadcast
+    to all columns and wrong lengths raise, here, before the engine
+    branch, so that every engine sees the same inputs.
+
+    A per-column m_bar reaches only the dtau and timestep physics:
+    ``consts.sigma_scat`` and the MMR scale inside the κ model were built
+    from the grid's one m_bar (``parallel.solve_population`` guards
+    this)."""
+    def cols(x, name):
+        x = torch.as_tensor(x, dtype=dtype, device=device)
+        if x.ndim == 0:
+            return x
+        x = x.reshape(-1, 1)
+        if x.shape[0] == 1 and B > 1:
+            x = x.expand(B, 1)
+        elif x.shape[0] != B:
+            raise ValueError(
+                f"per-column {name} has length {x.shape[0]}, expected "
+                f"{B} (one per column) or a scalar")
+        return x
+
+    params = PhysicsParams(g=cols(params.g, "params.g"),
+                           m_bar=cols(params.m_bar, "params.m_bar"),
+                           alpha=cols(params.alpha, "params.alpha"),
+                           n_dof=params.n_dof)
+    F_toa = consts.F_toa
+    if F_toa.ndim == 2:
+        if F_toa.shape[0] == 1 and B > 1:
+            consts = consts._replace(F_toa=F_toa.expand(B, -1))
+        elif F_toa.shape[0] != B:
+            raise ValueError(
+                f"per-column F_toa has {F_toa.shape[0]} rows, expected "
+                f"{B} (one per column) or a 1-D shared row")
+    return consts, params
+
+
 def _check_whole_iteration(engine, cfg: SolverConfig, consts, params,
                            hook):
     """The JAX package's guards of its whole-iteration engines
@@ -155,7 +200,7 @@ def _check_whole_iteration(engine, cfg: SolverConfig, consts, params,
             "(kappa_all.iteration_hook)")
 
 
-def _check_supported(cfg: SolverConfig, consts, params):
+def _check_supported(cfg: SolverConfig):
     if cfg.differentiable:
         raise NotImplementedError(
             "differentiable=True is ROADMAP queue 1 item 11")
@@ -166,10 +211,6 @@ def _check_supported(cfg: SolverConfig, consts, params):
     if cfg.bins_axis:
         raise NotImplementedError(
             "bins_axis (bins-sharded solves) is ROADMAP queue 1 item 14")
-    if _per_column(consts, params):
-        raise NotImplementedError(
-            "per-column g / m_bar / alpha / F_toa (population mode) is "
-            "ROADMAP queue 1 item 9")
 
 
 def solve_rc_batched(init_temps, consts: RTConstants, params: PhysicsParams,
@@ -187,23 +228,22 @@ def solve_rc_batched(init_temps, consts: RTConstants, params: PhysicsParams,
     from its ``iteration_hook``.
     ``init_fluxes``: optional (F_up, F_down) pair, (B, L, W) each, to
     warm-start the flux state (e.g. from a result's ``loop_*`` fields).
+
+    Population mode: ``params.g``, ``params.alpha`` and ``params.m_bar``
+    may each be a scalar or a (B,) tensor, and ``consts.F_toa`` (W,),
+    (1, W) or (B, W); a size-1 value is shared by every column.  The
+    ``"iteration"`` and ``"loop"`` engines refuse per-column values.
     """
     B, L = init_temps.shape
     W = consts.lam_cm.shape[0]
     dtype, device = init_temps.dtype, init_temps.device
     engine = _resolve_engine(cfg.engine, device)
+    consts, params = _normalize_columns(consts, params, B, dtype, device)
     hook = getattr(kappa_all, "iteration_hook", None)
     if engine in ("iteration", "loop"):
         _check_whole_iteration(engine, cfg, consts, params, hook)
-    _check_supported(cfg, consts, params)
+    _check_supported(cfg)
     n_hist = 2 * cfg.n_timesteps
-
-    # pin the physics scalars to the compute dtype and device
-    params = PhysicsParams(
-        g=torch.as_tensor(params.g, dtype=dtype, device=device),
-        m_bar=torch.as_tensor(params.m_bar, dtype=dtype, device=device),
-        alpha=torch.as_tensor(params.alpha, dtype=dtype, device=device),
-        n_dof=params.n_dof)
 
     if engine in ("iteration", "loop"):
         from ..ops.iteration_cuda import (make_iteration_pack,

@@ -37,13 +37,19 @@ def top_pressure(p):
     return torch.cat([p[2:], (p[-1] * p[-2] / p[-3])[None]])
 
 
+def _slab_g(g):
+    """Gravity against (B, L-1, W) slabs: a scalar, or per column (B, 1)
+    as (B, 1, 1)."""
+    return g if torch.as_tensor(g).ndim == 0 else g[..., None]
+
+
 def emit_dtaus(k_all, pressures, params):
     """The dtaus diagnostic of an emit sweep (`twostream.py:352,371`):
     a row of ones followed by the per-swept-layer optical depths, over
     any leading batch axes of ``k_all``."""
     p = pressures
     dtau = physics.delta_tau(k_all[..., 1:, :], p[1:, None],
-                             top_pressure(p)[:, None], params.g)
+                             top_pressure(p)[:, None], _slab_g(params.g))
     ones = torch.ones_like(k_all[..., :1, :])
     return torch.cat([ones, dtau], dim=-2)
 
@@ -78,8 +84,9 @@ def emit_sweep(temps, F_up, F_down, k_all, sigma_scat, F_toa,
     """One bottom-to-top emission sweep (`twostream.py:290-421`).
 
     ``temps`` (B, L); ``F_up``, ``F_down``, ``k_all`` (B, L, W);
-    ``sigma_scat``, ``F_toa``, ``lam_cm``, ``trapz_w`` (W,);
-    ``pressures`` (L,), bottom of the atmosphere first.
+    ``sigma_scat``, ``lam_cm``, ``trapz_w`` (W,); ``F_toa`` (W,), or
+    (B, W) per column; ``pressures`` (L,), bottom of the atmosphere
+    first.  ``params`` fields are scalars or (B, 1) per-column values.
     """
     B = temps.shape[0]
     p = pressures
@@ -89,7 +96,7 @@ def emit_sweep(temps, F_up, F_down, k_all, sigma_scat, F_toa,
     T2 = torch.cat([temps[:, 2:], temps[:, -1:]], dim=1)
 
     k = k_all[:, 1:]
-    dtau = physics.delta_tau(k, p1[:, None], p2[:, None], params.g)
+    dtau = physics.delta_tau(k, p1[:, None], p2[:, None], _slab_g(params.g))
     omega_0 = sigma_scat / (sigma_scat + k)
 
     # one Planck evaluation per layer; B1/B2 are shifted views
@@ -98,8 +105,9 @@ def emit_sweep(temps, F_up, F_down, k_all, sigma_scat, F_toa,
     B2 = torch.cat([B_all[:, 2:], B_all[:, -1:]], dim=1)
     cp = two_stream_couplers(dtau, omega_0, B1, B2, g_0=0.0)
 
+    W = F_toa.shape[-1]
     F2_down = torch.cat(
-        [F_down[:, 2:], F_toa.expand(B, 1, F_toa.shape[-1])], dim=1)
+        [F_down[:, 2:], F_toa.reshape(-1, 1, W).expand(B, 1, W)], dim=1)
     c = -cp.b * F2_down + cp.s_up
     z = _affine_prefix(cp.a, c, F_up[:, 1])             # F_2_up per layer
     u = torch.cat([F_up[:, 1:2], z[:, :-1]], dim=1)     # F_1_up per layer
@@ -136,7 +144,7 @@ def absorb_sweep(temps, F_up, F_down, k_all, sigma_scat, F_toa,
     p2 = p[1:]
 
     k = k_all[:, :-1]
-    dtau = physics.delta_tau(k, p1[:, None], p2[:, None], params.g)
+    dtau = physics.delta_tau(k, p1[:, None], p2[:, None], _slab_g(params.g))
     omega_0 = sigma_scat / (sigma_scat + k)
 
     B_all = planck_lambda(temps[..., None], lam_cm)

@@ -1,6 +1,6 @@
 """The user API of frei_tpu_torch: the published goldens, parity with
-frei_tpu's emission spectrum, the no-JAX import contract, and the loud
-refusal of what is not ported yet."""
+frei_tpu's emission spectrum, the no-JAX import contract, the loud
+refusal of what is not ported yet, and the features ported since."""
 
 import subprocess
 import sys
@@ -99,7 +99,9 @@ def test_import_loads_no_jax():
             "frei_tpu_torch.ops.iteration_cuda, frei_tpu_torch.io, "
             "frei_tpu_torch.io.cache, frei_tpu_torch.ops.rebin, "
             "frei_tpu_torch.ops.rebin_cuda, frei_tpu_torch.ops.kappa_cuda, "
-            "frei_tpu_torch.opacity.etl, frei_tpu_torch.native; "
+            "frei_tpu_torch.opacity.etl, frei_tpu_torch.native, "
+            "frei_tpu_torch.chemistry, frei_tpu_torch.chemistry.api, "
+            "frei_tpu_torch.parallel; "
             "bad = [m for m in sys.modules if m.split('.')[0] == 'jax']; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True)
@@ -182,11 +184,22 @@ def test_unported_feature_raises(small, case):
                              cfg._replace(engine=case))
         return
     if case == "chemistry-equilibrium":
+        # ported: the equilibrium chemistry runs (the exact solver here;
+        # the default 64 x 32 table's build is in tests/test_torch_fastchem
+        # .py's slow lane), and an unknown model name still raises
+        from frei_tpu_torch.chemistry.fastchem import FastChemTorch
         g2 = Grid(Planet.from_hot_jupiter(), n_wl_bins=16, n_layers=5,
-                  device="cpu")
-        with pytest.raises(NotImplementedError, match="item 10"):
-            g2.load_opacities(opacities=load_example_opacity(g2),
-                              chemistry="equilibrium")
+                  T_ref=2400.0, dtype=torch.float64, device="cpu")
+        g2.load_opacities(opacities=load_example_opacity(
+            g2, scale_factor=1.0, dtype=torch.float64),
+            chemistry="equilibrium-exact")
+        assert isinstance(g2.chemistry, FastChemTorch)
+        assert g2.chemistry.mode == "exact"
+        assert g2._kappa_fn.iteration_hook is None
+        spec, temps, _, _ = g2.emission_spectrum(n_timesteps=1)
+        assert np.all(np.isfinite(spec.flux_cgs)) and spec.flux_cgs.max() > 0
+        with pytest.raises(ValueError, match="unknown chemistry model"):
+            g2.load_opacities(chemistry="equilibrium-fast")
         return
     if case == "etl":
         # ported: binning from stores runs, and a path with no store
@@ -196,20 +209,30 @@ def test_unported_feature_raises(small, case):
         with pytest.raises(FileNotFoundError, match="nowhere"):
             g2.load_opacities(path="nowhere/*.ftop")
         return
+    if case.startswith("population"):
+        # ported: per-column g or F_toa run on the eager engine, and a
+        # population of copies of the planet is the shared solve
+        if case == "population-g":
+            params = PhysicsParams(g=torch.full((2,), params.g,
+                                                dtype=torch.float64),
+                                   m_bar=params.m_bar, alpha=params.alpha)
+        else:
+            consts = consts._replace(F_toa=consts.F_toa.expand(2, -1))
+        got = solve_rc_batched(T, consts, params, grid._kappa_fn, cfg)
+        ref = solve_rc_batched(T, grid._consts,
+                               grid.planet.physics_params(), grid._kappa_fn,
+                               cfg)
+        assert torch.equal(got.flux, ref.flux)
+        assert torch.equal(got.final_temps, ref.final_temps)
+        return
     match = {"differentiable": "item 11", "bins_axis": "item 14",
-             "associative": "item 13", "population-g": "item 9",
-             "population-F_toa": "item 9"}[case]
+             "associative": "item 13"}[case]
     if case == "differentiable":
         cfg = cfg._replace(differentiable=True)
     elif case == "bins_axis":
         cfg = cfg._replace(bins_axis="bins")
-    elif case == "associative":
-        cfg = cfg._replace(associative=True)
-    elif case == "population-g":
-        params = PhysicsParams(g=torch.full((2,), params.g),
-                               m_bar=params.m_bar, alpha=params.alpha)
     else:
-        consts = consts._replace(F_toa=consts.F_toa.expand(2, -1))
+        cfg = cfg._replace(associative=True)
     with pytest.raises(NotImplementedError, match=match):
         solve_rc_batched(T, consts, params, grid._kappa_fn, cfg)
 

@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain PyTorch twins, on the card: the
-emit/absorb sweeps (``csrc/sweep.cu``), the whole-iteration and
+emit/absorb sweeps (``csrc/sweep.cu``, for one shared planet and with
+per-column constants), the whole-iteration and
 whole-loop kernels (``csrc/iteration.cu``), the grouped trapezoid rebin
 (``csrc/rebin.cu``) and the batched kappa lookup (``csrc/kappa.cu``).
 
@@ -182,6 +183,66 @@ def test_kernel_matches_plain_twin(direction, dtype, case):
         assert all(torch.equal(x, y) for x, y in zip(again, first))
 
 
+def _population_consts(sc, B_, seed):
+    """Per-column constants (population mode) from a shared planet's:
+    each column's dtau factors divided by its own gravity factor and its
+    F_toa scaled, read by the kernels at a row stride."""
+    rng = np.random.RandomState(seed)
+
+    def col(a):
+        return torch.as_tensor(a, dtype=sc.c1.dtype,
+                               device=sc.c1.device)[:, None]
+    g = col(rng.uniform(0.4, 2.0, B_))
+    f = col(rng.uniform(0.5, 1.5, B_))
+    return sc._replace(
+        dtf_emit=(sc.dtf_emit[None, :] / g).contiguous(),
+        dtf_absorb=(sc.dtf_absorb[None, :] / g).contiguous(),
+        f_toa=(sc.f_toa[None, :] * f).contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(_SWEEP_CASES))
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("direction", ["emit", "absorb"])
+def test_population_kernel_matches_plain_twin(direction, dtype, case):
+    """Per-column dtau factors (B, L-1) and F_toa (B, W) against the twin
+    at the shapes and tolerances above, fused and materialized, frozen
+    columns kept; B copies of the shared constants give the shared
+    kernel's bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the sweep kernels run only on "
+                    "the card")
+    dt = getattr(torch, dtype)
+    dev = torch.device("cuda")
+    rtol, atol = (1e-10, 1e-13) if dtype == "float64" else (1e-4, 1e-7)
+    if _SWEEP_CASES[case] is None:
+        sc, T, Fu, Fd, kaps, done = _inputs(dt, dev)
+    else:
+        sc, T, Fu, Fd, kaps, done = _sweep_case(dt, dev, *_SWEEP_CASES[case])
+    B_ = T.shape[0]
+    scp = _population_consts(sc, B_, B_ + Fu.shape[2])
+    same = sc._replace(**{k: getattr(sc, k).expand(B_, -1).contiguous()
+                          for k in ("dtf_emit", "dtf_absorb", "f_toa")})
+    wrap = S.emit_kernel if direction == "emit" else S.absorb_kernel
+    plain = S.emit_plain if direction == "emit" else S.absorb_plain
+    kws = ({}, {"with_dtaus": True}) if direction == "emit" else ({},)
+    for form, kap in kaps.items():
+        for kw in kws:
+            got = wrap(T, Fu, Fd, kap, scp, done, **kw)
+            ref = plain(T, Fu, Fd, kap, scp, done, **kw)
+            for name, a, b in zip(["F_up", "F_down", "sums", "dtaus"], ref,
+                                  got):
+                a, b = a.cpu().numpy(), b.cpu().numpy()
+                np.testing.assert_allclose(
+                    b, a, rtol=rtol, atol=atol * float(np.abs(a).max()),
+                    err_msg=f"{direction} {form} {kw} {name}")
+            assert torch.equal(got[0][done], Fu[done])
+            shared = wrap(T, Fu, Fd, kap, sc, done, **kw)
+            copies = wrap(T, Fu, Fd, kap, same, done, **kw)
+            assert all(torch.equal(x, y) for x, y in zip(shared, copies)), \
+                f"{form} {kw}: copies of the planet differ from the shared"
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant", ["tma", "persistent"])
 @pytest.mark.parametrize("direction", ["emit", "absorb"])
@@ -247,12 +308,13 @@ def _iteration_inputs(dtype, dev):
     return pack, params, T, Fu, Fd, done
 
 
-def _iteration_case(dtype, dev, B_, L_, W_, S_, frozen):
+def _iteration_case(dtype, dev, B_, L_, W_, S_, frozen, chem=None):
     """Seeded iteration inputs at any shape, independent of the grid: a
     T(P) profile x U(0.9, 1.1) per column (the hottest bottom layers past
     the kappa T grid: zero-filled), random flux states, positive layer
-    tables of S_ species on 8 temperatures, the seeded chemistry tables,
-    and ``frozen`` columns ("none", "some", "all")."""
+    tables of S_ species on 8 temperatures, the seeded chemistry tables
+    (or ``chem``'s layer tables), and ``frozen`` columns ("none", "some",
+    "all")."""
     from frei_tpu_torch.ops import iteration_cuda as IC
     rng = np.random.RandomState(B_ * 1000 + L_ * 10 + W_ + S_)
     consts = _Consts(L_, W_, dtype, dev, rng)
@@ -266,7 +328,7 @@ def _iteration_case(dtype, dev, B_, L_, W_, S_, frozen):
     pack = IC.make_iteration_pack(
         consts, params, torch.as_tensor(k_tgrid, dtype=dtype, device=dev),
         torch.as_tensor(k_tab, dtype=dtype, device=dev),
-        _TableChemistry(L_, S_))
+        _TableChemistry(L_, S_) if chem is None else chem)
     prof = 2400.0 * np.geomspace(1.6, 0.6, L_)
     T = prof[None, :] * rng.uniform(0.9, 1.1, (B_, 1))
     Fu, Fd = (rng.rand(B_, L_, W_) * 1e13 for _ in range(2))
@@ -421,6 +483,63 @@ def _hold_early_convergence(T, Fu, pack, params, n_steps, hold_state):
                                    err_msg=name)
     again = IC.rc_loop_kernel(T, Fz, Fz, pack, params, n_steps, 2, cdT)
     assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+_EQUILIBRIUM = {}
+
+
+def _equilibrium_chemistry():
+    """``FastChemTorch`` table mode for the three species of the JAX
+    package's multi-species test (`tests/test_sweep_pallas.py:357`), the
+    default 64 x 32 table built on the card once per module."""
+    from frei_tpu_torch.chemistry.fastchem import FastChemTorch
+    if "chem" not in _EQUILIBRIUM:
+        _EQUILIBRIUM["chem"] = FastChemTorch(
+            ("1H2-16O", "23Na", "48Ti-16O"), 2.4 * 1.67262192369e-24)
+    return _EQUILIBRIUM["chem"]
+
+
+class _FirstSpecies:
+    """The equilibrium tables cut to their first ``n`` species."""
+
+    def __init__(self, chem, n):
+        self.chem, self.n = chem, n
+
+    def layer_ln_mmr_tables(self, pressures_cgs):
+        grid, tab = self.chem.layer_ln_mmr_tables(pressures_cgs)
+        return grid, tab[..., :self.n].contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S_", [1, 3])
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("kernel", ["iteration", "loop"])
+def test_whole_iteration_kernels_on_equilibrium_tables(kernel, dtype, S_):
+    """One RC step of the iteration kernel, or one iteration of the loop
+    kernel, on equilibrium ln-MMR tables (64 log T points) of one and
+    three species, held as above (``_hold_step``), 500 bins x 30 layers,
+    six columns."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the iteration kernels run only "
+                    "on the card")
+    from frei_tpu_torch.ops import iteration_cuda as IC
+    dt = getattr(torch, dtype)
+    dev = torch.device("cuda")
+    chem = _equilibrium_chemistry()
+    model = chem if S_ == 3 else _FirstSpecies(chem, S_)
+    pack, params, T, Fu, Fd, done = _iteration_case(dt, dev, 6, 30, 500, S_,
+                                                    "some", chem=model)
+    assert tuple(pack.c_tab.shape) == (30, S_, 64)
+    if kernel == "iteration":
+        got = IC.rc_iteration_kernel(T, Fu, Fd, done, pack, params,
+                                     with_sums=True)
+        _hold_step(got, T, Fu, Fd, done, pack, params, *_TOLS[dtype])
+        return
+    tout, fu, fd, hist, maxdt, n_it, conv, sums = IC.rc_loop_kernel(
+        T, Fu, Fd, pack, params, 1, 10 ** 6, 0.0, with_sums=True)
+    assert torch.equal(tout, hist[:, 1]) and (n_it == 1).all()
+    _hold_step((hist[:, 0], fu, fd, tout, None, sums), T, Fu, Fd, None,
+               pack, params, *_TOLS[dtype])
 
 
 @pytest.mark.cuda
