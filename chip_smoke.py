@@ -5,6 +5,8 @@
     python3 chip_smoke.py --sweeps     # build sweep.cu; phases 3, 3d, 3f
     python3 chip_smoke.py --iteration  # build iteration.cu; phases 3b, 3e
     python3 chip_smoke.py --kappa      # build kappa.cu; phase 3c's kappa part
+    python3 chip_smoke.py --differentiable   # build sweep.cu; phase 4f and
+                                             # phase 5's gradient leg
     python3 chip_smoke.py --ab-leg     # one leg of a parent/change pair
     python3 chip_smoke.py --ab-leg kappa   # the same, the kappa lookup alone
 
@@ -87,6 +89,16 @@ Phases, one report line each, any failure raising (non-zero exit):
    and ``"loop"`` against ``"eager"`` (flux rtol 1e-7 / 1e-4); the four
    maximum-VMR goldens of the exact solver on the card
    (:func:`phase_chemistry`);
+4f. the differentiable solve, the associative scan, the standalone
+   drivers and checkpoints (queue 1 items 11 and 13,
+   :func:`phase_differentiable`), float64 at 500 bins x 30 layers: the
+   differentiable forward bit for bit the ``"eager"`` solve with columns
+   stopping at different iterations; gradients against central
+   differences (rtol 1e-5) and against the port on the CPU (rtol 1e-8);
+   ``associative=True`` against the sequential scan; ``absorb`` /
+   ``emit`` against sweeps by hand (rtol 1e-12); 3 + 3 iterations
+   resumed from a ``save_solution`` file bit for bit 6, on ``"cuda"``
+   and ``"eager"`` (~20 s);
 4c. the opacity plane end to end: two synthetic line-list stores
    (``1H2-16O``, ``12C-16O``; 8 T x 8 P x 2e6 samples, 512 MB each) under
    a fresh ``FREI_TPU_CACHE``; ``Grid(device="cuda").load_opacities(
@@ -106,9 +118,13 @@ Phases, one report line each, any failure raising (non-zero exit):
    run and read after it); then the same for bench.py's two other solve
    legs: the population (bench.py's draws, one planet per column) on
    ``"cuda"`` and ``"eager"``, and the headline on phase 4e's
-   equilibrium chemistry on all four engines.
+   equilibrium chemistry on all four engines; then bench.py's gradient
+   leg (:func:`phase_gradient_leg`): d(sum flux^2)/d(T0) through the
+   differentiable ``"eager"`` solve at 6144 and 8192 columns (walls split
+   into forward and backward, peak memory, every launch count 0, finite
+   gradients).
 
-(4d and 4e run after 4c.)  The second-to-last line is a JSON record of
+(4d, 4e and 4f run after 4c.)  The second-to-last line is a JSON record of
 the kernels (time, plain twin, bound and what bounds it, library call,
 launches on the main path, and on the population and chemistry legs);
 the last line is ``{"ok": true, "device": {...}}``.
@@ -134,6 +150,13 @@ PARITY64_COLUMNS = 64
 # the ETL's row chunk and a line-list store's wavelength axis (the
 # H2O-sized store of docs/opacities.md has 2e6 samples)
 ETL_ROWS, ETL_SAMPLES = 64, 2_000_000
+# the rebin kernel's timing, as the kappa kernel's: rounds of calls
+REBIN_ROUNDS, REBIN_CALLS = 10, 20
+# phase 4f: columns of the differentiable forward check, of the gradient
+# checks; phase 5's gradient leg: bench.py's size (a 16 GB chip's
+# ceiling) and the headline's
+DIFF_COLUMNS, GRAD_COLUMNS = 64, 8
+GRAD_LEG_COLUMNS = (6144, N_COLUMNS)
 # phase 4c's stores: 8 T x 8 P rows each, cut from the reference volume's
 # 28 x 23 to fit the run's time and disk
 ETL_SPECIES = ("1H2-16O", "12C-16O")
@@ -236,10 +259,10 @@ def time_ms(fn, n):
     return start.elapsed_time(end) / n
 
 
-def make_grid(dtype):
+def make_grid(dtype, device="cuda"):
     from frei_tpu_torch import Grid, Planet, load_example_opacity
     grid = Grid(Planet.from_hot_jupiter(), n_wl_bins=N_BINS,
-                n_layers=N_LAYERS, T_ref=2400.0, dtype=dtype, device="cuda")
+                n_layers=N_LAYERS, T_ref=2400.0, dtype=dtype, device=device)
     grid.load_opacities(opacities=load_example_opacity(
         grid, scale_factor=1.0, dtype=dtype))
     return grid
@@ -1313,7 +1336,11 @@ def phase_opacity_parity(edges_um):
         rows.cpu().numpy(), x, edges_um), device=dev)
     hold("rebin", f"rebin R={ETL_ROWS} N={ETL_SAMPLES} float32 vs the "
          f"native host engine", got, native, 1e-6, 1e-6 * scale)
-    rec["rebin"]["ms"] = time_ms(lambda: RC.rebin_kernel(rows, plan), 20)
+    # in rounds, as the kappa kernel is timed: the median and every round
+    rounds = [time_ms(lambda: RC.rebin_kernel(rows, plan), REBIN_CALLS)
+              for _ in range(REBIN_ROUNDS)]
+    rec["rebin"]["ms"] = float(np.median(rounds))
+    rec["rebin"]["ms_rounds"] = rounds
     rec["rebin"]["plain_ms"] = time_ms(lambda: RC.rebin_plain(rows, plan),
                                        3)
     # the bytes the kernel must move (rows, panel widths, bin ranges in;
@@ -1331,7 +1358,10 @@ def phase_opacity_parity(edges_um):
     rec["rebin"]["library_ms"] = time_ms(lambda: torch.matmul(rows, onehot),
                                          5)
     del onehot
-    log(f"[timing] rebin kernel {rec['rebin']['ms']:.4f} ms, plain twin "
+    log(f"[timing] rebin kernel {REBIN_ROUNDS} rounds of {REBIN_CALLS} "
+        f"calls: min {min(rounds):.4f} median {rec['rebin']['ms']:.4f} max "
+        f"{max(rounds):.4f} ms ({', '.join(f'{x:.4f}' for x in rounds)}); "
+        f"plain twin "
         f"{rec['rebin']['plain_ms']:.4f} ms, one-hot torch.matmul "
         f"{rec['rebin']['library_ms']:.4f} ms ({ETL_ROWS} x {ETL_SAMPLES} "
         f"float32 samples -> {plan.n_bins} bins, device-resident)")
@@ -1684,6 +1714,237 @@ def phase_etl(root):
         f"err/bound {q_k:.3f}; outside it sigma exactly")
     return {"walls": walls, "launches": launches, "solve_wall": wall}
 
+def diff_grads(grid, T0):
+    """Phase 4f's gradients: loss = sum(flux * w) / 1e12 (w rising from
+    0.5 to 1.5 over the bins, so no cancellation) of the differentiable
+    solve, 3 iterations with the convergence exits off, and its
+    gradients with respect to g, alpha and the initial temperatures
+    (`tests/test_grad.py:94-130`).  Returns (loss, point, gradients)."""
+    from frei_tpu_torch.rt.physics import PhysicsParams
+    from frei_tpu_torch.rt.solver import SolverConfig, solve_rc_batched
+    p0 = grid.planet.physics_params()
+    consts, kappa = grid._consts, grid._kappa_fn
+    w = torch.linspace(0.5, 1.5, N_BINS, dtype=grid.dtype, device=grid.device)
+    cfg = SolverConfig(n_timesteps=3, n_zero_crossings=10 ** 6,
+                       convergence_dT=0.0, differentiable=True)
+
+    def loss(g, alpha, T):
+        par = PhysicsParams(g=g, m_bar=p0.m_bar, alpha=alpha, n_dof=p0.n_dof)
+        return (solve_rc_batched(T, consts, par, kappa, cfg).flux
+                * w).sum() / 1e12
+
+    x = [torch.tensor(v, dtype=grid.dtype, device=grid.device)
+         for v in (p0.g, p0.alpha)] + [T0.to(grid.device)]
+    leaves = [v.clone().requires_grad_(True) for v in x]
+    return loss, x, torch.autograd.grad(loss(*leaves), leaves)
+
+
+def phase_differentiable(root):
+    """Phase 4f: queue 1 items 11 and 13 on the card, float64 at the run's
+    width (500 bins x 30 layers), each check raising on failure: the
+    differentiable forward bit for bit the ordinary ``"eager"`` solve in
+    every field (64 columns of the profile x U(0.8, 1.2), 4 iterations at a
+    15 K threshold, so that columns stop after 1, 2, 3 and 4 iterations,
+    where at 60 K all stop after one; remat chunks 0, 3, 1);
+    d(loss)/d(g, alpha, T0[1, 11]) against central differences at rtol
+    1e-5 (layer 11 is the photosphere's, where this gradient peaks; layer
+    2, the JAX test's on 5 layers, lies below 100 bar here, at 2e-17) and
+    against the port on the CPU at rtol 1e-8 (8 columns,
+    :func:`diff_grads`); the associative scan against the sequential one
+    (flux rtol 1e-10; temperatures 1e-12 on the grid's own profile, the
+    JAX test's input); the standalone ``absorb`` / ``emit`` against sweeps by hand from the same
+    self-seeds (rtol 1e-12); and 3 + 3 iterations resumed from a
+    ``save_solution`` file bit for bit 6 continuous ones, on ``"cuda"``
+    and ``"eager"``.  Returns its wall."""
+    from frei_tpu_torch import absorb, emit
+    from frei_tpu_torch.io.checkpoint import resume_state, save_solution
+    from frei_tpu_torch.ops.planck import bb_flux
+    from frei_tpu_torch.rt.solver import SolverConfig, solve_rc_batched
+    from frei_tpu_torch.rt.sweeps import absorb_sweep, emit_sweep
+    t_start = time.perf_counter()
+    g64 = make_grid(torch.float64)
+    args = solver_args(g64)
+
+    # the forward: bit for bit, with columns converging early
+    rng = np.random.RandomState(2)
+    T0 = torch.as_tensor(np.asarray(g64.rt_grid.init_temperatures)[None, :]
+                         * rng.uniform(0.8, 1.2, (DIFF_COLUMNS, 1)),
+                         dtype=torch.float64, device=g64.device)
+    kw = dict(n_timesteps=4, convergence_dT=15.0)
+    ref = solve_rc_batched(T0, *args, SolverConfig(engine="eager", **kw))
+    iters = torch.bincount(ref.n_iterations.long(), minlength=5).tolist()
+    assert iters[4] < DIFF_COLUMNS and sum(x > 0 for x in iters) > 1, \
+        f"the columns do not stop at different iterations: {iters}"
+    for chunk in (0, 3, 1):
+        got = solve_rc_batched(T0, *args, SolverConfig(
+            differentiable=True, remat_chunk=chunk, **kw))
+        bad = [f for f in ref._fields
+               if not torch.equal(getattr(ref, f), getattr(got, f))]
+        assert not bad, f"differentiable forward (chunk {chunk}): {bad}"
+    log(f"[differentiable] forward, {DIFF_COLUMNS} columns x 4 iterations "
+        f"(columns by iterations run 1-4: {iters[1:]}): every RTResult "
+        f"field bit for bit the eager solve at remat_chunk 0, 3, 1")
+
+    # gradients against central differences and against the CPU
+    T8 = columns(g64, GRAD_COLUMNS, seed=3)
+    loss, x, grads = diff_grads(g64, T8)
+    e = torch.zeros_like(T8)
+    e[1, 11] = 1.0
+    fds = []
+    with torch.no_grad():
+        for i, (d, h) in enumerate(((1.0, float(x[0]) * 1e-6), (1.0, 1e-6),
+                                    (e, 1e-3))):
+            xp = [v + h * d if j == i else v for j, v in enumerate(x)]
+            xm = [v - h * d if j == i else v for j, v in enumerate(x)]
+            fds.append(float(loss(*xp) - loss(*xm)) / (2.0 * h))
+    got = [float(grads[0]), float(grads[1]), float(grads[2][1, 11])]
+    for name, a, b in zip(("g", "alpha", "T0[1, 11]"), got, fds):
+        log(f"[differentiable] d(loss)/d {name}: autograd {a:.10e}, central "
+            f"difference {b:.10e}")
+        assert abs(a - b) <= 1e-5 * abs(b), (name, a, b)
+    assert torch.isfinite(grads[2]).all()
+    _, _, cpu = diff_grads(make_grid(torch.float64, "cpu"), T8.cpu())
+    for name, a, b in zip(("g", "alpha", "T0"), grads, cpu):
+        q = check_close(f"d(loss)/d {name} card vs CPU", a.cpu(), b, 1e-8,
+                        1e-12 * float(b.abs().max()))
+        log(f"[differentiable] d(loss)/d {name}, card vs the port on the "
+            f"CPU: max rel {rel_err(a.cpu(), b)[0]:.3e}, err/bound {q:.3f}")
+
+    # the associative scan (the eager engine's), 4 iterations: on the
+    # grid's own profile (the JAX test's input) flux and temperatures; on
+    # the 64 columns the flux (their thin top layer's update is a
+    # difference of nearly equal sums, 1e-10 apart between the scans)
+    T_grid = torch.as_tensor(g64.init_temperatures, dtype=torch.float64,
+                             device=g64.device)
+    for label, T in (("the grid's profile", T_grid[None]),
+                     (f"{DIFF_COLUMNS} columns", T0)):
+        ra = solve_rc_batched(T, *args, SolverConfig(4, engine="eager",
+                                                     associative=True))
+        rs = solve_rc_batched(T, *args, SolverConfig(4, engine="eager"))
+        check_close(f"associative flux, {label}", ra.flux, rs.flux, 1e-10,
+                    0.0)
+        if T is T_grid[None]:
+            check_close("associative temps", ra.final_temps,
+                        rs.final_temps, 1e-12, 0.0)
+        log(f"[associative] {label} x 4 iterations against the sequential "
+            f"scan: flux max rel {rel_err(ra.flux, rs.flux)[0]:.3e}, temps "
+            f"max rel {rel_err(ra.final_temps, rs.final_temps)[0]:.3e}")
+
+    # the standalone drivers against sweeps by hand from the self-seeds
+    consts, params, kappa = args
+    T1 = torch.as_tensor(g64.init_temperatures, dtype=torch.float64,
+                         device="cuda")
+    sweep_kw = dict(sigma_scat=consts.sigma_scat, F_toa=consts.F_toa,
+                    lam_cm=consts.lam_cm, trapz_w=consts.trapz_w,
+                    pressures=consts.pressures, params=params)
+    for name, drive, sweep, n in (("absorb", absorb, absorb_sweep, 4),
+                                  ("emit", emit, emit_sweep, 3)):
+        r = drive(T1, consts, params, kappa, n_timesteps=n,
+                  convergence_thresh=0.0)
+        Fu = torch.zeros((N_LAYERS, N_BINS), dtype=torch.float64,
+                         device="cuda")
+        Fd = torch.zeros_like(Fu)
+        Fd[-1] = consts.F_toa
+        if name == "absorb":
+            Fu[0] = bb_flux(T1[0], consts.lam_cm)
+        T, Fu, Fd = T1[None], Fu[None], Fd[None]
+        for _ in range(n):
+            s_ = sweep(T, Fu, Fd, kappa(T, consts.pressures), **sweep_kw)
+            T, Fu, Fd = s_.temps, s_.F_up, s_.F_down
+        assert int(r.n_history) == n + 1
+        for label, a, b in (("temps", r.final_temps, T[0]),
+                            ("F_up", r.F_up, Fu[0]),
+                            ("F_down", r.F_down, Fd[0])):
+            check_close(f"standalone {name} {label}", a, b, 1e-12, 0.0)
+        log(f"[standalone] {name}, {n} timesteps of one column: temps, F_up "
+            f"and F_down within rtol 1e-12 of sweeps by hand (max rel "
+            f"{rel_err(r.final_temps, T[0])[0]:.3e})")
+
+    # checkpoint resume: 3 + 3 iterations through a file, bit for bit
+    data = root / "chip_smoke_data"
+    data.mkdir(exist_ok=True)
+    try:
+        fixed = dict(n_zero_crossings=10 ** 6, convergence_dT=0.0)
+        for engine in ("cuda", "eager"):
+            full = solve_rc_batched(T0, *args, SolverConfig(
+                6, engine=engine, **fixed))
+            part = solve_rc_batched(T0, *args, SolverConfig(
+                3, engine=engine, **fixed))
+            path = save_solution(data / f"resume_{engine}.npz", part)
+            temps, fluxes = resume_state(path, device="cuda")
+            resumed = solve_rc_batched(temps, *args, SolverConfig(
+                3, engine=engine, **fixed), init_fluxes=fluxes)
+            bad = [f for f in ("flux", "final_temps", "F_up", "F_down")
+                   if not torch.equal(getattr(full, f), getattr(resumed, f))]
+            assert not bad, f"resume on {engine}: {bad} differ"
+            log(f"[checkpoint] engine={engine}: 3 + 3 iterations resumed "
+                f"from {path.name} equal 6 continuous ones bit for bit")
+    finally:
+        shutil.rmtree(data, ignore_errors=True)
+    return time.perf_counter() - t_start
+
+
+def phase_gradient_leg(sizes=GRAD_LEG_COLUMNS, runs=3):
+    """Phase 5's gradient leg (`bench.py:194-232`): loss = sum(flux^2) /
+    1e26 of the differentiable solve and its gradient with respect to the
+    initial temperatures, float32, 500 x 30, 20 iterations with the exits
+    off, at each size in ``sizes`` (the first columns of the headline's):
+    one warm-up and ``runs`` timed runs, each timed by the host clock in
+    two parts that end in a synchronize, the forward and the backward (the
+    rematerialized forwards included); every kernel's launch count set to
+    0 before and read after (the solve runs ``"eager"``: all must stay
+    0); gradients finite."""
+    from frei_tpu_torch.rt.solver import SolverConfig, solve_rc_batched
+    wrappers = kernel_wrappers()
+    grid = make_grid(torch.float32)
+    consts, params, kappa = solver_args(grid)
+    cfg = SolverConfig(n_timesteps=N_ITERS, n_zero_crossings=10 ** 6,
+                       convergence_dT=0.0, differentiable=True)
+    chunk = min(cfg.remat_chunk or max(1, round(N_ITERS ** 0.5)), N_ITERS)
+    T_all = columns(grid, max(sizes))
+    res = {}
+    for n in sizes:
+        T0 = T_all[:n].contiguous()
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fwd, bwd = [], []
+        for _ in range(runs + 1):
+            T = T0.clone().requires_grad_(True)
+            t0 = time.perf_counter()
+            flux = solve_rc_batched(T, consts, params, kappa, cfg).flux
+            loss = (flux ** 2).sum() / 1e26
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            (grad,) = torch.autograd.grad(loss, T)
+            torch.cuda.synchronize()
+            fwd.append(t1 - t0)
+            bwd.append(time.perf_counter() - t1)
+            del flux, loss
+        fwd, bwd = fwd[1:], bwd[1:]           # the warm-up's left out
+        walls = [a + b for a, b in zip(fwd, bwd)]
+        launches = {k: w.launches for k, w in wrappers.items()}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        assert not any(launches.values()), f"gradient leg ran {launches}"
+        assert torch.isfinite(grad).all(), "non-finite gradients"
+        assert grad.shape == (n, N_LAYERS)
+        wall = min(walls)
+        res[n] = dict(walls=walls, forward=fwd, backward=bwd,
+                      rate=n * N_BINS / wall, peak_gb=peak_gb,
+                      launches=launches, chunk=chunk)
+        log(f"[gradient] {n} columns x {N_BINS} bins x {N_LAYERS} layers x "
+            f"{N_ITERS} iterations float32, remat chunk {chunk}: walls "
+            f"{', '.join(f'{w:.4f}' for w in walls)} s (forward "
+            f"{', '.join(f'{w:.4f}' for w in fwd)}; backward "
+            f"{', '.join(f'{w:.4f}' for w in bwd)}), "
+            f"{res[n]['rate']:,.0f} columns*bins/s (best), peak memory "
+            f"{peak_gb:.2f} GB, launches {json.dumps(launches)}, gradients "
+            f"finite (max |dL/dT0| {float(grad.abs().max()):.4e})")
+        del grad, T
+    return res
+
+
 def kernel_wrappers():
     """Each kernel's wrapper, by the kernel's name in the JSON record."""
     from frei_tpu_torch.ops import iteration_cuda as IC
@@ -1822,6 +2083,14 @@ def main(argv):
         phase_iteration_variants()
         phase_iteration_chemistry()
         return
+    if argv == ["--differentiable"]:
+        # the differentiable solve and item 13's paths: phase 4f (its
+        # resume check runs the sweep kernels) and the gradient leg
+        log("\n".join(f"[build] {line}" for line in ptxas_summary(S.build())))
+        log(f"[differentiable] phase 4f passed in "
+            f"{phase_differentiable(root):.1f} s")
+        phase_gradient_leg()
+        return
     if argv:
         sys.exit(f"chip_smoke: unknown arguments {argv}")
 
@@ -1878,6 +2147,10 @@ def main(argv):
     chem, chem_build = phase_chemistry()
     log(f"[chemistry] on {smi}: default table builds on the card "
         f"{chem_build_3b:.2f} s (phase 3b), {chem_build:.2f} s (phase 4e)")
+    # phase 4f: the differentiable solve, the associative scan, the
+    # standalone drivers and checkpoint resume
+    wall_4f = phase_differentiable(root)
+    log(f"[differentiable] phase 4f passed in {wall_4f:.1f} s")
 
     # phase 5: the headline solve, then the population leg (bench.py's
     # draws) and the chemistry leg (the headline on equilibrium chemistry)
@@ -1894,6 +2167,12 @@ def main(argv):
         log(f"[{leg}] on {smi}: " + ", ".join(
             f"{e} {r[e]['rate']:,.0f} columns*bins/s, peak "
             f"{r[e]['peak_gb']:.2f} GB" for e in r))
+    # the gradient leg: bench.py's size and the headline's
+    grad_leg = phase_gradient_leg()
+    log("[gradient] on " + smi + ": " + ", ".join(
+        f"{n} columns {r['rate']:,.0f} columns*bins/s, best wall "
+        f"{min(r['walls']):.4f} s, peak {r['peak_gb']:.2f} GB"
+        for n, r in grad_leg.items()))
 
     # each kernel: its time and its plain twin's at the main path's shapes,
     # the least time the card could take for the same work (bytes moved

@@ -2,9 +2,11 @@
 
 The PyTorch port of ``frei_tpu``, for one NVIDIA H100: the same
 grids, opacity plane (on-disk stores, the streamed rebin, the binned
-cache, the batched kappa lookup), mock chemistry and two-stream
-radiative-convective solver, with every Pallas kernel of ``frei_tpu``
-written by hand in CUDA (``csrc/*.cu``).  It imports no JAX;
+cache, the batched kappa lookup), mock and equilibrium chemistry, and
+two-stream radiative-convective solver (batched, per planet and
+differentiable; standalone sweep drivers, checkpoints, diagnostics),
+with every Pallas kernel of ``frei_tpu`` written by hand in CUDA
+(``csrc/*.cu``).  It imports no JAX;
 ``frei_tpu`` stays the reference it is tested against.
 
 The entry points (``Grid``, ``make_opacity_stack``,
@@ -39,6 +41,7 @@ from .opacity.tables import (OpacityStack, kappa_from_stack,
 from .rt.physics import PhysicsParams
 from .rt.solver import (RTConstants, RTResult, SolverConfig, solve_rc,
                         solve_rc_batched)
+from .rt.standalone import StandaloneResult, absorb, emit
 from .rt.sweeps import absorb_sweep, emit_sweep
 from .stellar.irradiation import b_star, f_toa
 
@@ -53,6 +56,7 @@ __all__ = [
     "binned_opacity_stack", "make_synthetic_store", "opacity_dir_to_store",
     "PhysicsParams", "SolverConfig", "RTConstants", "RTResult",
     "solve_rc", "solve_rc_batched", "emit_sweep", "absorb_sweep",
+    "emit", "absorb", "StandaloneResult",
     "f_toa", "b_star",
 ]
 

@@ -360,6 +360,59 @@ class Grid:
         return (spec, _np(result.final_temps), temp_hist,
                 _np(result.dtaus))
 
+    def spectrum_fn(self, n_timesteps=1, n_zero_crossings=2,
+                    convergence_dT=3.0):
+        """A reverse-differentiable spectrum function for gradient-based
+        retrieval (`frei_tpu/api.py:407-444`).
+
+        Returns ``fn(init_temps, params, F_toa=None) -> flux``:
+        ``init_temps`` (C, L) [K] and ``params`` a
+        :class:`~frei_tpu_torch.rt.physics.PhysicsParams` (scalars or
+        (C,) per-column tensors) on the grid's device, ``F_toa`` an
+        optional (C, W) per-column irradiation, and ``flux`` the (C, W)
+        emergent spectra.  Gradients reach ``init_temps``, every tensor
+        field of ``params`` and ``F_toa`` (``torch.autograd.grad``,
+        ``torch.optim.LBFGS``).  It runs the fixed-horizon
+        rematerialized ``"eager"`` solve (``SolverConfig.differentiable``),
+        so a call costs an unconverged ``n_timesteps`` solve.
+        """
+        if self.opacities is None:
+            raise ValueError(
+                "Must load opacities before building a spectrum fn.")
+        cfg = SolverConfig(
+            n_timesteps=int(n_timesteps),
+            n_zero_crossings=int(n_zero_crossings),
+            convergence_dT=units.to_kelvin(convergence_dT),
+            engine="eager", differentiable=True)
+        consts, kappa_fn = self._consts, self._kappa_fn
+
+        def fn(init_temps, params, F_toa=None):
+            c = consts if F_toa is None else consts._replace(F_toa=F_toa)
+            return solve_rc_batched(init_temps, c, params, kappa_fn,
+                                    cfg).flux
+
+        return fn
+
+    def emission_dashboard(self, spec, final_temps, temperature_history,
+                           dtaus, T_eff=None, plot_phoenix=True,
+                           cache=False):
+        """Dashboard figure (reference `core.py:340-383`); needs
+        matplotlib, and ``expecto`` where ``plot_phoenix`` is set."""
+        from .diag.plot import dashboard
+        from .stellar.phoenix import get_binned_phoenix_spectrum
+
+        if plot_phoenix:
+            if T_eff is None:
+                T_eff = effective_temperature(self, spec, dtaus, final_temps)
+            # plain gravities are m / s^2 there; planet.g is in cm / s^2
+            phoenix = get_binned_phoenix_spectrum(
+                T_eff, self.planet.g / 100.0, self.wl_bins, self.lam,
+                cache=cache)
+        else:
+            phoenix = np.zeros(len(self.lam))
+        return dashboard(self, spec, phoenix, dtaus, final_temps,
+                         temperature_history)
+
 
 def effective_temperature_milne(grid: Grid, spec, dtaus, final_temps):
     """Photospheric temperature from the Milne tau = 2/3 condition

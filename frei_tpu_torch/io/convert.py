@@ -18,10 +18,11 @@ from ..opacity.tables import LayerKappaTables, OpacityStack
 from ..ops.iteration_cuda import IterationPack
 from ..ops.sweep_cuda import SweepConsts
 from ..rt.physics import PhysicsParams
-from ..rt.solver import RTConstants
+from ..rt.solver import RTConstants, RTResult
 
 __all__ = ["to_opacity_stack", "to_layer_tables", "to_rt_constants",
-           "to_physics_params", "to_iteration_pack", "to_resume_state"]
+           "to_physics_params", "to_iteration_pack", "to_resume_state",
+           "to_rt_result"]
 
 
 def _t(x, dtype, device):
@@ -95,3 +96,15 @@ def to_resume_state(result, dtype=torch.float64, device="cpu"):
     return (_t(result.loop_temps, dtype, device),
             (_t(result.loop_F_up, dtype, device),
              _t(result.loop_F_down, dtype, device)))
+
+
+def to_rt_result(result, dtype=torch.float64, device="cpu") -> RTResult:
+    """An ``RTResult`` with every field of a JAX solve result: floating
+    fields in ``dtype``, the counters and flags in their own integer and
+    boolean types."""
+    def field(x):
+        a = np.array(x)
+        if np.issubdtype(a.dtype, np.floating):
+            return _t(a, dtype, device)
+        return torch.as_tensor(a, device=device)
+    return RTResult(*(field(getattr(result, f)) for f in RTResult._fields))

@@ -28,6 +28,16 @@ picks ``"cuda"`` for CUDA tensors and ``"eager"`` otherwise.
 
 ``"eager"`` and ``"cuda"`` also solve a population, one planet per
 column: per-column g, alpha, m_bar and F_toa (:func:`solve_rc_batched`).
+
+``SolverConfig(differentiable=True)`` makes the solve reverse-mode
+differentiable (gradient-based retrieval, ``api.Grid.spectrum_fn``): it
+runs on ``"eager"`` (the kernels have no backward), for exactly
+``n_timesteps`` iterations, converged columns running on frozen through
+the same selects, so its forward equals the ordinary solve bit for bit.
+Activations are rematerialized in chunks of about sqrt(n_timesteps)
+iterations, each iteration and each sweep inside a chunk checkpointed
+again (``torch.utils.checkpoint``, the JAX package's nested
+``jax.checkpoint``).
 """
 
 from __future__ import annotations
@@ -35,7 +45,9 @@ from __future__ import annotations
 from typing import Callable, NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from ..diag import telemetry
 from .physics import PhysicsParams
 from .sweeps import absorb_sweep, emit_sweep
 
@@ -58,11 +70,21 @@ class SolverConfig(NamedTuple):
     n_timesteps: int = 1           # max outer iterations (`core.py:233`)
     n_zero_crossings: int = 2      # oscillation threshold (`core.py:233`)
     convergence_dT: float = 3.0    # [K] (`core.py:233`)
-    associative: bool = False      # log-depth layer scan: not ported yet
+    # the layer recurrence as a log-depth scan (rt.sweeps), for deep
+    # grids: the "eager" engine and the standalone drivers take it; the
+    # kernel engines run their own serial recurrence and ignore it, as
+    # the JAX package's Pallas engines do
+    associative: bool = False
     progress: bool = False         # print per-iteration telemetry
     engine: str = "auto"           # see ENGINES
-    bins_axis: str = ""            # bins-sharded solves: not ported yet
-    differentiable: bool = False   # reverse-mode solve: not ported yet
+    bins_axis: str = ""            # bins-sharded solves: ROADMAP item 14
+    # reverse-mode differentiable fixed-horizon solve ("eager" only)
+    differentiable: bool = False
+    # iterations per rematerialization chunk of the differentiable solve:
+    # 0 = round(sqrt(n_timesteps)), 1 = a checkpoint every iteration.  The
+    # backward keeps the state (two (B, L, W) flux slabs) at every chunk
+    # boundary plus one chunk's iteration boundaries, ~(T/c + c) slabs
+    remat_chunk: int = 0
 
 
 class RTConstants(NamedTuple):
@@ -101,6 +123,16 @@ class _ConvState(NamedTuple):
     n_cols: torch.Tensor     # history rows recorded (B,) int32
 
 
+class _LoopState(NamedTuple):
+    temps: torch.Tensor      # (B, L)
+    F_up: torch.Tensor       # (B, L, W)
+    F_down: torch.Tensor     # (B, L, W)
+    cs: _ConvState
+    conv: torch.Tensor       # per-layer convergence flags (B, L)
+    n_iters: torch.Tensor    # iterations run (B,) int32
+    done: torch.Tensor       # converged columns (B,)
+
+
 def _push_history(T_new, cs: _ConvState) -> _ConvState:
     """Record one temperature-history row and update the incremental
     zero-crossing statistics (equivalent to re-diffing the whole history
@@ -114,7 +146,8 @@ def _push_history(T_new, cs: _ConvState) -> _ConvState:
                       n_cols=cs.n_cols + 1)
 
 
-def _resolve_engine(engine: str, device: torch.device) -> str:
+def _resolve_engine(engine: str, device: torch.device,
+                    differentiable: bool = False) -> str:
     if engine in _JAX_NAMES:
         raise ValueError(
             f"engine {engine!r} is the JAX package's name; this package's "
@@ -122,6 +155,14 @@ def _resolve_engine(engine: str, device: torch.device) -> str:
     if engine not in ENGINES:
         raise ValueError(f"unknown sweep engine {engine!r} "
                          f"(expected one of {ENGINES})")
+    if differentiable:
+        # checked before the device, so every device gives this message
+        if engine not in ("auto", "eager"):
+            raise ValueError(
+                f"cfg.differentiable needs engine 'eager' (or 'auto'), got "
+                f"{engine!r}: the CUDA kernels have no reverse-mode "
+                "autodiff rules")
+        return "eager"
     if engine == "auto":
         return "cuda" if device.type == "cuda" else "eager"
     if engine == "cuda" and device.type != "cuda":
@@ -201,13 +242,14 @@ def _check_whole_iteration(engine, cfg: SolverConfig, consts, params,
 
 
 def _check_supported(cfg: SolverConfig):
-    if cfg.differentiable:
-        raise NotImplementedError(
-            "differentiable=True is ROADMAP queue 1 item 11")
-    if cfg.associative:
-        raise NotImplementedError(
-            "associative=True (the log-depth layer scan) is ROADMAP "
-            "queue 1 item 13")
+    if cfg.differentiable and cfg.progress:
+        # the backward pass would replay the prints of every iteration
+        raise ValueError("cfg.progress prints from inside the loop, which "
+                         "rematerialization replays; disable it for "
+                         "differentiable solves")
+    if cfg.differentiable and cfg.remat_chunk < 0:
+        raise ValueError(f"remat_chunk must be >= 0 (0 = auto), got "
+                         f"{cfg.remat_chunk}")
     if cfg.bins_axis:
         raise NotImplementedError(
             "bins_axis (bins-sharded solves) is ROADMAP queue 1 item 14")
@@ -233,17 +275,21 @@ def solve_rc_batched(init_temps, consts: RTConstants, params: PhysicsParams,
     may each be a scalar or a (B,) tensor, and ``consts.F_toa`` (W,),
     (1, W) or (B, W); a size-1 value is shared by every column.  The
     ``"iteration"`` and ``"loop"`` engines refuse per-column values.
+
+    ``cfg.differentiable``: gradients reach ``init_temps``, every tensor
+    field of ``params``, ``consts.F_toa`` and ``init_fluxes`` (see the
+    module docstring); ``"auto"`` resolves to ``"eager"``, and the kernel
+    engines refuse.
     """
     B, L = init_temps.shape
     W = consts.lam_cm.shape[0]
     dtype, device = init_temps.dtype, init_temps.device
-    engine = _resolve_engine(cfg.engine, device)
+    engine = _resolve_engine(cfg.engine, device, cfg.differentiable)
     consts, params = _normalize_columns(consts, params, B, dtype, device)
     hook = getattr(kappa_all, "iteration_hook", None)
     if engine in ("iteration", "loop"):
         _check_whole_iteration(engine, cfg, consts, params, hook)
     _check_supported(cfg)
-    n_hist = 2 * cfg.n_timesteps
 
     if engine in ("iteration", "loop"):
         from ..ops.iteration_cuda import (make_iteration_pack,
@@ -286,7 +332,8 @@ def solve_rc_batched(init_temps, consts: RTConstants, params: PhysicsParams,
     else:
         sweep_kw = dict(sigma_scat=consts.sigma_scat, F_toa=consts.F_toa,
                         lam_cm=consts.lam_cm, trapz_w=consts.trapz_w,
-                        pressures=consts.pressures, params=params)
+                        pressures=consts.pressures, params=params,
+                        associative=cfg.associative)
 
         def emit(T, Fu, Fd, done=None, with_dtaus=False):
             r = emit_sweep(T, Fu, Fd, kappa_all(T, consts.pressures),
@@ -298,6 +345,13 @@ def solve_rc_batched(init_temps, consts: RTConstants, params: PhysicsParams,
             r = absorb_sweep(T, Fu, Fd, kappa_all(T, consts.pressures),
                              **sweep_kw)
             return r.F_up, r.F_down, r.temps, r.dT
+
+        if cfg.differentiable:
+            # a checkpoint per sweep, the opacity lookup included: the
+            # backward of one sweep holds its ~10 (B, L, W)
+            # intermediates, never both sweeps' sets at once
+            # (`frei_tpu/rt/solver.py:544-553`)
+            emit, absorb = _remat(emit), _remat(absorb)
 
     def col(done, x):
         return done.reshape(done.shape + (1,) * (x.ndim - 1))
@@ -317,40 +371,39 @@ def solve_rc_batched(init_temps, consts: RTConstants, params: PhysicsParams,
          conv) = rc_loop_kernel(temps, F_up, F_down, pack, scal,
                                 cfg.n_timesteps, cfg.n_zero_crossings,
                                 cfg.convergence_dT)
+        telemetry.check_finite("loop kernel's outputs", temps, F_up, F_down)
         Fu_f, Fd_f, T_f, _, dtaus = emit(temps, F_up, F_down,
                                          with_dtaus=True)
+        telemetry.check_finite("final emit sweep", Fu_f, Fd_f, T_f)
         return RTResult(
             flux=Fu_f[:, -1], final_temps=T_f, temp_history=hist,
             n_history=2 * n_iters, dtaus=dtaus, F_up=Fu_f, F_down=Fd_f,
             n_iterations=n_iters, converged=conv, max_dT_history=maxdT,
             loop_temps=temps, loop_F_up=F_up, loop_F_down=F_down)
-    cs = _ConvState(
-        prev_T=temps,
-        prev_sign=torch.zeros((B, L), dtype=dtype, device=device),
-        flips=torch.zeros((B, L), dtype=torch.int32, device=device),
-        n_cols=torch.zeros((B,), dtype=torch.int32, device=device))
-    hist = torch.zeros((B, n_hist, L), dtype=dtype, device=device)
-    maxdT = torch.zeros((B, cfg.n_timesteps), dtype=dtype, device=device)
-    conv = torch.zeros((B, L), dtype=torch.bool, device=device)
-    n_iters = torch.zeros((B,), dtype=torch.int32, device=device)
-    done = torch.zeros((B,), dtype=torch.bool, device=device)
 
-    for it in range(cfg.n_timesteps):
-        if it and bool(done.all()):
-            break
+    def body(it, st: _LoopState):
+        """One RC iteration: the new loop state and this iteration's
+        history rows (T after emit, T after absorb, max |dT|), zero for
+        columns already converged.  Pure: nothing is written in place,
+        so a checkpoint can replay it."""
+        temps, F_up, F_down, cs, conv, n_iters, done = st
         if engine == "iteration":
             # one kernel per RC step, the flux freeze inside it
             T1, Fu2, Fd2, T2, dT2 = rc_iteration_kernel(
                 temps, F_up, F_down, done, pack, scal)
-        elif engine == "cuda":
-            # the kernels apply the freeze to the flux slabs themselves
-            Fu1, Fd1, T1, _ = emit(temps, F_up, F_down, done)
-            Fu2, Fd2, T2, dT2 = absorb(T1, Fu1, Fd1, done)
+            telemetry.check_finite(f"RC step of iteration {it}", T1, Fu2,
+                                   Fd2, T2)
         else:
-            Fu1, Fd1, T1, _ = emit(temps, F_up, F_down)
-            Fu2, Fd2, T2, dT2 = absorb(T1, Fu1, Fd1)
-            Fu2 = torch.where(col(done, Fu2), F_up, Fu2)
-            Fd2 = torch.where(col(done, Fd2), F_down, Fd2)
+            # the "cuda" kernels apply the freeze to the slabs themselves
+            Fu1, Fd1, T1, _ = emit(temps, F_up, F_down, done)
+            telemetry.check_finite(f"emit sweep of iteration {it}", Fu1,
+                                   Fd1, T1)
+            Fu2, Fd2, T2, dT2 = absorb(T1, Fu1, Fd1, done)
+            telemetry.check_finite(f"absorb sweep of iteration {it}", Fu2,
+                                   Fd2, T2)
+            if engine == "eager":
+                Fu2 = torch.where(col(done, Fu2), F_up, Fu2)
+                Fd2 = torch.where(col(done, Fd2), F_down, Fd2)
         cs1 = _push_history(T1, cs)
         cs2 = _push_history(T2, cs1)
         conv_layers = ((cs2.flips > cfg.n_zero_crossings)
@@ -358,31 +411,86 @@ def solve_rc_batched(init_temps, consts: RTConstants, params: PhysicsParams,
         new_done = conv_layers.all(dim=-1)                       # (B,)
 
         keep = done[:, None]
-        hist[:, 2 * it] = torch.where(keep, hist[:, 2 * it], T1)
-        hist[:, 2 * it + 1] = torch.where(keep, hist[:, 2 * it + 1], T2)
-        maxdT[:, it] = torch.where(done, maxdT[:, it],
-                                   torch.abs(dT2).amax(dim=-1))
+        rows = (T1.masked_fill(keep, 0.0), T2.masked_fill(keep, 0.0),
+                torch.abs(dT2).amax(dim=-1).masked_fill(done, 0.0))
         if cfg.progress:
-            print(f"RC iter {it:4d}: max|dT| = "
-                  f"{float(torch.abs(dT2).max()):8.2f} K; conv = "
-                  f"{int(conv_layers.all(0).sum())}/{L}", flush=True)
-        n_iters = torch.where(done, n_iters, it + 1).to(torch.int32)
-        temps = torch.where(keep, temps, T2)
-        F_up, F_down = Fu2, Fd2
-        cs = _ConvState(*(torch.where(col(done, new), old, new)
-                          for new, old in zip(cs2, cs)))
-        conv = torch.where(keep, conv, conv_layers)
-        done = done | new_done
+            telemetry.progress_printer(it, torch.abs(dT2).max(),
+                                       conv_layers.all(0).sum(), L)
+        st = _LoopState(
+            temps=torch.where(keep, temps, T2), F_up=Fu2, F_down=Fd2,
+            cs=_ConvState(*(torch.where(col(done, new), old, new)
+                            for new, old in zip(cs2, cs))),
+            conv=torch.where(keep, conv, conv_layers),
+            n_iters=torch.where(done, n_iters, it + 1).to(torch.int32),
+            done=done | new_done)
+        return st, rows
+
+    st = _LoopState(
+        temps=temps, F_up=F_up, F_down=F_down,
+        cs=_ConvState(
+            prev_T=temps,
+            prev_sign=torch.zeros((B, L), dtype=dtype, device=device),
+            flips=torch.zeros((B, L), dtype=torch.int32, device=device),
+            n_cols=torch.zeros((B,), dtype=torch.int32, device=device)),
+        conv=torch.zeros((B, L), dtype=torch.bool, device=device),
+        n_iters=torch.zeros((B,), dtype=torch.int32, device=device),
+        done=torch.zeros((B,), dtype=torch.bool, device=device))
+    T = cfg.n_timesteps
+    rows = []
+    if cfg.differentiable:
+        # exactly T iterations, no early exit (converged columns run on
+        # frozen), in checkpointed chunks of checkpointed iterations
+        # (`frei_tpu/rt/solver.py:688-728`)
+        chunk = min(cfg.remat_chunk or max(1, round(T ** 0.5)), T)
+
+        def run_chunk(first, n, st):
+            out = []
+            for it in range(first, first + n):
+                st, r = _remat(body)(it, st)
+                out.append(r)
+            return st, out
+
+        for first in range(0, T, chunk):
+            st, out = _remat(run_chunk)(first, min(chunk, T - first), st)
+            rows += out
+    else:
+        for it in range(T):
+            if it and bool(st.done.all()):
+                break
+            st, r = body(it, st)
+            rows.append(r)
+    # the rows of iterations not run stay zero
+    zero = init_temps.new_zeros((B, L))
+    pad = T - len(rows)
+    hist = (torch.stack([x for r in rows for x in r[:2]]
+                        + [zero] * (2 * pad), dim=1)
+            if T else init_temps.new_zeros((B, 0, L)))
+    maxdT = (torch.stack([r[2] for r in rows] + [zero[:, 0]] * pad, dim=1)
+             if T else init_temps.new_zeros((B, 0)))
 
     # final emit for the output spectrum (`core.py:323-333`), which also
     # returns the dtaus diagnostic (on the "cuda" engine the kernel writes
     # it, so the opacity slab is never materialized)
-    Fu_f, Fd_f, T_f, _, dtaus = emit(temps, F_up, F_down, with_dtaus=True)
+    Fu_f, Fd_f, T_f, _, dtaus = emit(st.temps, st.F_up, st.F_down,
+                                     with_dtaus=True)
+    telemetry.check_finite("final emit sweep", Fu_f, Fd_f, T_f)
     return RTResult(
         flux=Fu_f[:, -1], final_temps=T_f, temp_history=hist,
-        n_history=cs.n_cols, dtaus=dtaus, F_up=Fu_f, F_down=Fd_f,
-        n_iterations=n_iters, converged=conv, max_dT_history=maxdT,
-        loop_temps=temps, loop_F_up=F_up, loop_F_down=F_down)
+        n_history=st.cs.n_cols, dtaus=dtaus, F_up=Fu_f, F_down=Fd_f,
+        n_iterations=st.n_iters, converged=st.conv, max_dT_history=maxdT,
+        loop_temps=st.temps, loop_F_up=st.F_up, loop_F_down=st.F_down)
+
+
+def _remat(fn):
+    """``fn`` under non-reentrant activation checkpointing: its forward
+    keeps only its inputs, and the backward replays it.  The
+    non-reentrant form also carries gradients to tensors that ``fn``
+    reaches through closures (``params``, ``F_toa``), which the
+    reentrant form drops."""
+    def run(*args, **kwargs):
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False, **kwargs)
+    return run
 
 
 def solve_rc(init_temps, consts: RTConstants, params: PhysicsParams,

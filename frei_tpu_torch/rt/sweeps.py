@@ -5,7 +5,9 @@ out: every tensor carries a leading batch axis of B columns, where the
 JAX package vmaps a single-column sweep.  Within a sweep the propagated
 flux is a first-order affine recurrence over layers
 (`frei/twostream.py:383-394,511-522`); it runs here as a Python loop
-over layers on (B, W) tensors, in the reference's Gauss-Seidel order.
+over layers on (B, W) tensors, in the reference's Gauss-Seidel order,
+or with ``associative=True`` as a log-depth prefix scan of the affine
+maps (``frei_tpu``'s ``lax.associative_scan``, for deep grids).
 Everything else (couplers, Planck sources, quadratures and the
 temperature tendencies) is vectorized over all layers.
 
@@ -68,7 +70,7 @@ def bolometric_flux(flux, trapz_w):
     return flux @ trapz_w
 
 
-def _affine_prefix(A, c, init):
+def _affine_prefix_seq(A, c, init):
     """z_j = A_j z_{j-1} + c_j along axis 1, seeded with ``init``."""
     out = []
     z = init
@@ -78,15 +80,37 @@ def _affine_prefix(A, c, init):
     return torch.stack(out, dim=1)
 
 
+def _affine_prefix_assoc(A, c, init):
+    """The same prefix map in ceil(log2 n) doubling steps over the n
+    layers of axis 1: step d composes each map with the one d layers
+    below it, ``(a_r a_l, a_r c_l + c_r)``, built out of place, then
+    ``z = A_pref init + c_pref`` (`frei_tpu/rt/sweeps.py:89-97`)."""
+    n = A.shape[1]
+    d = 1
+    while d < n:
+        A, c = (torch.cat([A[:, :d], A[:, d:] * A[:, :-d]], dim=1),
+                torch.cat([c[:, :d], A[:, d:] * c[:, :-d] + c[:, d:]],
+                          dim=1))
+        d *= 2
+    return A * init[:, None] + c
+
+
+def _affine_prefix(A, c, init, associative):
+    if associative:
+        return _affine_prefix_assoc(A, c, init)
+    return _affine_prefix_seq(A, c, init)
+
+
 def emit_sweep(temps, F_up, F_down, k_all, sigma_scat, F_toa,
-               lam_cm, trapz_w, pressures,
-               params: PhysicsParams) -> SweepResult:
+               lam_cm, trapz_w, pressures, params: PhysicsParams,
+               associative: bool = False) -> SweepResult:
     """One bottom-to-top emission sweep (`twostream.py:290-421`).
 
     ``temps`` (B, L); ``F_up``, ``F_down``, ``k_all`` (B, L, W);
     ``sigma_scat``, ``lam_cm``, ``trapz_w`` (W,); ``F_toa`` (W,), or
     (B, W) per column; ``pressures`` (L,), bottom of the atmosphere
     first.  ``params`` fields are scalars or (B, 1) per-column values.
+    ``associative`` runs the layer recurrence as a log-depth scan.
     """
     B = temps.shape[0]
     p = pressures
@@ -109,7 +133,7 @@ def emit_sweep(temps, F_up, F_down, k_all, sigma_scat, F_toa,
     F2_down = torch.cat(
         [F_down[:, 2:], F_toa.reshape(-1, 1, W).expand(B, 1, W)], dim=1)
     c = -cp.b * F2_down + cp.s_up
-    z = _affine_prefix(cp.a, c, F_up[:, 1])             # F_2_up per layer
+    z = _affine_prefix(cp.a, c, F_up[:, 1], associative)  # F_2_up per layer
     u = torch.cat([F_up[:, 1:2], z[:, :-1]], dim=1)     # F_1_up per layer
 
     F1_down = cp.a * F2_down - cp.b * u + cp.s_down
@@ -132,8 +156,8 @@ def emit_sweep(temps, F_up, F_down, k_all, sigma_scat, F_toa,
 
 
 def absorb_sweep(temps, F_up, F_down, k_all, sigma_scat, F_toa,
-                 lam_cm, trapz_w, pressures,
-                 params: PhysicsParams) -> SweepResult:
+                 lam_cm, trapz_w, pressures, params: PhysicsParams,
+                 associative: bool = False) -> SweepResult:
     """One top-to-bottom absorption sweep (`twostream.py:424-550`):
     layers L-2 .. 0, propagating F_down with the stale F_up."""
     del F_toa  # enters only through the caller-maintained F_down state
@@ -155,7 +179,8 @@ def absorb_sweep(temps, F_up, F_down, k_all, sigma_scat, F_toa,
     F1_up_stale = F_up[:, :-1]
     c = -cp.b * F1_up_stale + cp.s_down
     d = torch.flip(_affine_prefix(torch.flip(cp.a, [1]), torch.flip(c, [1]),
-                                  F_down[:, -1]), [1])   # F_1_down per layer
+                                  F_down[:, -1], associative),
+                   [1])                                  # F_1_down per layer
     d_next = torch.cat([d[:, 1:], F_down[:, -1:]], dim=1)  # F_2_down
 
     F2_up = cp.a * F1_up_stale - cp.b * d_next + cp.s_up

@@ -101,7 +101,9 @@ def test_import_loads_no_jax():
             "frei_tpu_torch.ops.rebin_cuda, frei_tpu_torch.ops.kappa_cuda, "
             "frei_tpu_torch.opacity.etl, frei_tpu_torch.native, "
             "frei_tpu_torch.chemistry, frei_tpu_torch.chemistry.api, "
-            "frei_tpu_torch.parallel; "
+            "frei_tpu_torch.parallel, frei_tpu_torch.rt.standalone, "
+            "frei_tpu_torch.io.checkpoint, frei_tpu_torch.diag.plot, "
+            "frei_tpu_torch.stellar.phoenix; "
             "bad = [m for m in sys.modules if m.split('.')[0] == 'jax']; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True)
@@ -225,16 +227,31 @@ def test_unported_feature_raises(small, case):
         assert torch.equal(got.flux, ref.flux)
         assert torch.equal(got.final_temps, ref.final_temps)
         return
-    match = {"differentiable": "item 11", "bins_axis": "item 14",
-             "associative": "item 13"}[case]
     if case == "differentiable":
+        # ported: the kernel engines refuse (no backward), "auto" runs the
+        # eager solve, whose forward is the ordinary one
         cfg = cfg._replace(differentiable=True)
-    elif case == "bins_axis":
-        cfg = cfg._replace(bins_axis="bins")
-    else:
-        cfg = cfg._replace(associative=True)
-    with pytest.raises(NotImplementedError, match=match):
-        solve_rc_batched(T, consts, params, grid._kappa_fn, cfg)
+        with pytest.raises(ValueError, match="autodiff"):
+            solve_rc_batched(T, consts, params, grid._kappa_fn,
+                             cfg._replace(engine="cuda"))
+        got = solve_rc_batched(T, consts, params, grid._kappa_fn, cfg)
+        ref = solve_rc_batched(T, consts, params, grid._kappa_fn,
+                               SolverConfig(n_timesteps=1, engine="eager"))
+        assert torch.equal(got.flux, ref.flux)
+        return
+    if case == "associative":
+        # ported: the log-depth scan runs and agrees with the sequential one
+        got = solve_rc_batched(T, consts, params, grid._kappa_fn,
+                               cfg._replace(associative=True))
+        ref = solve_rc_batched(T, consts, params, grid._kappa_fn, cfg)
+        np.testing.assert_allclose(got.flux.numpy(), ref.flux.numpy(),
+                                   rtol=1e-10)
+        np.testing.assert_allclose(got.final_temps.numpy(),
+                                   ref.final_temps.numpy(), rtol=1e-12)
+        return
+    with pytest.raises(NotImplementedError, match="item 14"):
+        solve_rc_batched(T, consts, params, grid._kappa_fn,
+                         cfg._replace(bins_axis="bins"))
 
 
 @pytest.mark.parametrize("jax_name, ours", [

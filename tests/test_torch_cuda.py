@@ -2,7 +2,11 @@
 emit/absorb sweeps (``csrc/sweep.cu``, for one shared planet and with
 per-column constants), the whole-iteration and
 whole-loop kernels (``csrc/iteration.cu``), the grouped trapezoid rebin
-(``csrc/rebin.cu``) and the batched kappa lookup (``csrc/kappa.cu``).
+(``csrc/rebin.cu``) and the batched kappa lookup (``csrc/kappa.cu``);
+then ``chip_smoke.py`` phase 4f's checks on the card: the differentiable
+solve (forward bit for bit the eager solve, gradients against the CPU's
+at rtol 1e-8), the associative scan, the standalone drivers and
+checkpoint resume on ``"cuda"`` and ``"eager"``.
 
 Needs an NVIDIA GPU and nvcc; skipped without a GPU.  Imports no JAX,
 so it runs where the JAX package is not installed:
@@ -817,3 +821,147 @@ def test_kappa_kernel_and_plan_at_the_edges(dtype, case):
     np.testing.assert_allclose(gather.reshape(got.shape).cpu().numpy(),
                                ref.cpu().numpy(), rtol=rtol,
                                atol=atol * scale)
+
+
+# ---- the differentiable solve and item 13's paths on the card (phase 4f)
+
+def _diff_setup(dev, B_=16, seed=2):
+    """A float64 grid on ``dev`` and B_ columns of its profile x U(0.8,
+    1.2), which stop early (after one iteration) at a 15 K threshold."""
+    grid = _grid(torch.float64, dev)
+    rng = np.random.RandomState(seed)
+    T = torch.as_tensor(np.asarray(grid.init_temperatures)[None, :]
+                        * rng.uniform(0.8, 1.2, (B_, 1)),
+                        dtype=torch.float64, device=dev)
+    p = grid.planet.physics_params()
+    params = PhysicsParams(
+        *(torch.as_tensor(x, dtype=torch.float64, device=dev)
+          for x in (p.g, p.m_bar, p.alpha)), n_dof=p.n_dof)
+    return grid, T, (grid._consts, params, grid._kappa_fn)
+
+
+def _diff_grads(grid, T):
+    """d(sum(flux w) / 1e12)/d(g, alpha, T) of the differentiable solve,
+    3 iterations, exits off."""
+    from frei_tpu_torch.rt.solver import SolverConfig, solve_rc_batched
+    p0 = grid.planet.physics_params()
+    w = torch.linspace(0.5, 1.5, W, dtype=torch.float64, device=T.device)
+    x = [torch.tensor(v, dtype=torch.float64, device=T.device,
+                      requires_grad=True) for v in (p0.g, p0.alpha)]
+    T = T.clone().requires_grad_(True)
+    par = PhysicsParams(g=x[0], m_bar=p0.m_bar, alpha=x[1], n_dof=p0.n_dof)
+    flux = solve_rc_batched(T, grid._consts, par, grid._kappa_fn,
+                            SolverConfig(n_timesteps=3,
+                                         n_zero_crossings=10 ** 6,
+                                         convergence_dT=0.0,
+                                         differentiable=True)).flux
+    return torch.autograd.grad((flux * w).sum() / 1e12, x + [T])
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: phase 4f's checks run on the card")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [0, 3, 1])
+def test_differentiable_forward_on_the_card(chunk):
+    """The differentiable forward equals the ordinary eager solve on the
+    card in every field, with columns stopping early."""
+    from frei_tpu_torch.rt.solver import SolverConfig, solve_rc_batched
+    _need_card()
+    grid, T, args = _diff_setup(torch.device("cuda"))
+    kw = dict(n_timesteps=4, convergence_dT=15.0)
+    ref = solve_rc_batched(T, *args, SolverConfig(engine="eager", **kw))
+    assert int(ref.n_iterations.min()) < 4
+    got = solve_rc_batched(T, *args, SolverConfig(differentiable=True,
+                                                  remat_chunk=chunk, **kw))
+    for f in ref._fields:
+        assert torch.equal(getattr(ref, f), getattr(got, f)), f
+    with pytest.raises(ValueError, match="autodiff"):
+        solve_rc_batched(T, *args, SolverConfig(engine="cuda",
+                                                differentiable=True, **kw))
+
+
+@pytest.mark.cuda
+def test_differentiable_grads_card_against_cpu():
+    """The card's gradients against the port's on the CPU, rtol 1e-8."""
+    _need_card()
+    got = _diff_grads(*_diff_setup(torch.device("cuda"), B_=4)[:2])
+    want = _diff_grads(*_diff_setup(torch.device("cpu"), B_=4)[:2])
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        b = b.numpy()
+        np.testing.assert_allclose(a.cpu().numpy(), b, rtol=1e-8,
+                                   atol=1e-12 * float(np.abs(b).max()))
+
+
+@pytest.mark.cuda
+def test_associative_scan_on_the_card():
+    """``associative=True`` against the sequential scan on the card,
+    4 iterations of the grid's profile: flux rtol 1e-10, temperatures
+    1e-12."""
+    from frei_tpu_torch.rt.solver import SolverConfig, solve_rc_batched
+    _need_card()
+    grid, _, args = _diff_setup(torch.device("cuda"))
+    T = torch.as_tensor(grid.init_temperatures, dtype=torch.float64,
+                        device="cuda")[None]
+    ra = solve_rc_batched(T, *args, SolverConfig(4, engine="eager",
+                                                 associative=True))
+    rs = solve_rc_batched(T, *args, SolverConfig(4, engine="eager"))
+    np.testing.assert_allclose(ra.flux.cpu().numpy(), rs.flux.cpu().numpy(),
+                               rtol=1e-10)
+    np.testing.assert_allclose(ra.final_temps.cpu().numpy(),
+                               rs.final_temps.cpu().numpy(), rtol=1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("direction", ["emit", "absorb"])
+def test_standalone_drivers_on_the_card(direction):
+    """The standalone drivers on the card against sweeps by hand from
+    the reference's self-seeds, rtol 1e-12."""
+    from frei_tpu_torch import absorb, absorb_sweep, emit, emit_sweep
+    from frei_tpu_torch.ops.planck import bb_flux
+    _need_card()
+    grid, _, (consts, params, kappa) = _diff_setup(torch.device("cuda"))
+    T0 = torch.as_tensor(grid.init_temperatures, dtype=torch.float64,
+                         device="cuda")
+    drive, sweep = ((emit, emit_sweep) if direction == "emit"
+                    else (absorb, absorb_sweep))
+    r = drive(T0, consts, params, kappa, n_timesteps=3,
+              convergence_thresh=0.0)
+    Fu = torch.zeros((L, W), dtype=torch.float64, device="cuda")
+    Fd = torch.zeros_like(Fu)
+    Fd[-1] = consts.F_toa
+    if direction == "absorb":
+        Fu[0] = bb_flux(T0[0], consts.lam_cm)
+    T, Fu, Fd = T0[None], Fu[None], Fd[None]
+    for _ in range(3):
+        s = sweep(T, Fu, Fd, kappa(T, consts.pressures),
+                  sigma_scat=consts.sigma_scat, F_toa=consts.F_toa,
+                  lam_cm=consts.lam_cm, trapz_w=consts.trapz_w,
+                  pressures=consts.pressures, params=params)
+        T, Fu, Fd = s.temps, s.F_up, s.F_down
+    assert int(r.n_history) == 4
+    for a, b in ((r.final_temps, T[0]), (r.F_up, Fu[0]), (r.F_down, Fd[0])):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   rtol=1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["cuda", "eager"])
+def test_checkpoint_resume_on_the_card(engine, tmp_path):
+    """3 iterations, saved, resumed for 3 more on the card: 6 continuous
+    iterations bit for bit."""
+    from frei_tpu_torch.io.checkpoint import resume_state, save_solution
+    from frei_tpu_torch.rt.solver import SolverConfig, solve_rc_batched
+    _need_card()
+    _, T, args = _diff_setup(torch.device("cuda"))
+    kw = dict(engine=engine, n_zero_crossings=10 ** 6, convergence_dT=0.0)
+    full = solve_rc_batched(T, *args, SolverConfig(6, **kw))
+    part = solve_rc_batched(T, *args, SolverConfig(3, **kw))
+    temps, fluxes = resume_state(save_solution(tmp_path / "c.npz", part))
+    resumed = solve_rc_batched(temps, *args, SolverConfig(3, **kw),
+                               init_fluxes=fluxes)
+    for f in ("flux", "final_temps", "F_up", "F_down"):
+        assert torch.equal(getattr(full, f), getattr(resumed, f)), f
