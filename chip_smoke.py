@@ -7,6 +7,8 @@
     python3 chip_smoke.py --kappa      # build kappa.cu; phase 3c's kappa part
     python3 chip_smoke.py --differentiable   # build sweep.cu; phase 4f and
                                              # phase 5's gradient leg
+    python3 chip_smoke.py --parallel   # build sweep.cu, iteration.cu;
+                                       # phase 4g
     python3 chip_smoke.py --ab-leg     # one leg of a parent/change pair
     python3 chip_smoke.py --ab-leg kappa   # the same, the kappa lookup alone
 
@@ -124,14 +126,30 @@ Phases, one report line each, any failure raising (non-zero exit):
    into forward and backward, peak memory, every launch count 0, finite
    gradients).
 
+4g. the parallel plane (queue 1 item 14, :func:`phase_parallel`), after
+   phase 5: ``parallel.solve_ensemble`` on NCCL in a world of one, a
+   (1, 1) mesh at the headline on ``"loop"``, ``"iteration"`` and
+   ``"cuda"``, bit for bit ``solve_rc_batched`` (sha256), both walls;
+   then this file started twice (``--parallel-rank``), a world of two
+   gloo ranks on this card (NCCL refuses two ranks on one card): float64
+   (2, 1) and (1, 2) meshes on ``"cuda"``, (2, 1) on ``"loop"`` and
+   ``"iteration"`` against one-process solves (rtol 1e-10; the top
+   layer's temperature 1e-8),
+   ``"iteration"`` refused on (1, 2), the sharded gradients summed over
+   the ranks (rtol 1e-10), and float32 on (1, 2) at the headline (250
+   bins a rank through the sweep kernels): held after one iteration,
+   finite after 20, its wall and the all-reduce's share.  Every launch
+   count is set to 0 before each of the plane's solves and read after.
+
 (4d, 4e and 4f run after 4c.)  The second-to-last line is a JSON record of
 the kernels (time, plain twin, bound and what bounds it, library call,
-launches on the main path, and on the population and chemistry legs);
-the last line is ``{"ok": true, "device": {...}}``.
+launches on the main path, and on the population, chemistry and parallel
+legs); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import re
@@ -140,6 +158,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from datetime import timedelta
 from pathlib import Path
 
 import numpy as np
@@ -1958,6 +1977,346 @@ def kernel_wrappers():
             "resort_rebin": RC.rebin_kernel}
 
 
+# phase 4g, the parallel plane: the two-rank legs' float64 columns, their
+# iterations (the CPU tests'), and the gradient leg's columns
+PAR64_COLUMNS, PAR_ITERS, PAR_GRAD_COLUMNS = 64, 3, 8
+
+
+def digest(t):
+    """sha256 of a tensor's bytes."""
+    return hashlib.sha256(
+        t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def counted(tally, fn):
+    """``fn()`` with every kernel's launch count set to 0 just before and
+    read just after (the device synchronized), added into ``tally``."""
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    for k, w in wrappers.items():
+        tally[k] += w.launches
+    return out
+
+
+def gather(dt):
+    """A DTensor's global tensor, gathered with ``dist.all_gather_into_
+    tensor`` over each sharded mesh dim.  (``DTensor.full_tensor()``
+    crashes with a segmentation fault on a gloo world with CUDA tensors in
+    torch 2.11, inside its functional collectives; the plain collective
+    works.)"""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Shard
+    x = dt.to_local()
+    for i, p in enumerate(dt.placements):
+        if isinstance(p, Shard):
+            group = dt.device_mesh.get_group(i)
+            n = dist.get_world_size(group)
+            parts = x.new_empty((n * x.shape[0],) + x.shape[1:])
+            dist.all_gather_into_tensor(parts, x.contiguous(), group=group)
+            x = torch.cat(parts.chunk(n), dim=p.dim)
+    return x
+
+
+def fixed(engine, n=N_ITERS, **kw):
+    from frei_tpu_torch.rt.solver import SolverConfig
+    return SolverConfig(n_timesteps=n, n_zero_crossings=10 ** 6,
+                        convergence_dT=0.0, engine=engine, **kw)
+
+
+def phase_parallel_one(tally):
+    """Phase 4g on NCCL, a world of one: ``solve_ensemble`` on a (1, 1)
+    mesh at the headline (8192 x 500 x 30, float32, 20 fixed iterations)
+    on ``"loop"``, ``"iteration"`` and ``"cuda"``, its flux and final
+    temperatures equal bit for bit to ``solve_rc_batched``'s (sha256);
+    the walls of the two, in turns direct, plane, plane, direct after one
+    warm-up each.  Returns {engine: walls}."""
+    import torch.distributed as dist
+    from frei_tpu_torch.parallel import make_mesh, solve_ensemble
+    from frei_tpu_torch.parallel.launch import free_port
+    from frei_tpu_torch.rt.solver import solve_rc_batched
+    grid = make_grid(torch.float32)
+    T0 = columns(grid, N_COLUMNS)
+    consts, params, kappa = solver_args(grid)
+    dist.init_process_group("nccl",
+                            init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0,
+                            timeout=timedelta(seconds=300))
+    out = {}
+    try:
+        mesh = make_mesh(1, 1)
+        for engine in ("loop", "iteration", "cuda"):
+            cfg = fixed(engine)
+            run = {"direct": lambda: solve_rc_batched(T0, consts, params,
+                                                      kappa, cfg),
+                   "plane": lambda: counted(tally, lambda: solve_ensemble(
+                       T0, consts, params, grid.opacities, grid.chemistry,
+                       cfg, mesh=mesh))}
+            res, walls = {}, {"direct": [], "plane": []}
+            for kind in ("direct", "plane", "direct", "plane", "plane",
+                         "direct"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res[kind] = run[kind]()
+                torch.cuda.synchronize()
+                walls[kind].append(time.perf_counter() - t0)
+            walls = {k: v[1:] for k, v in walls.items()}   # warm-ups out
+            plane = res["plane"]
+            assert type(plane.flux).__name__ == "DTensor"
+            for f in ("final_temps", "flux"):
+                a = digest(getattr(res["direct"], f))
+                b = digest(getattr(plane, f).full_tensor())
+                assert a == b, f"(1, 1) mesh, {engine}: {f} {a} != {b}"
+            out[engine] = walls
+            log(f"[parallel] NCCL world of one, (1, 1) mesh, engine="
+                f"{engine:9s} {N_COLUMNS} x {N_BINS} x {N_LAYERS} x "
+                f"{N_ITERS} float32: flux and final temps bit-equal to "
+                f"solve_rc_batched (flux sha256 {b[:16]}); walls direct "
+                + ", ".join(f"{w:.4f}" for w in walls["direct"])
+                + " s, solve_ensemble "
+                + ", ".join(f"{w:.4f}" for w in walls["plane"]) + " s")
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def parallel_rank(out):
+    """One rank of phase 4g's world of two: gloo, both ranks on cuda:0
+    (NCCL refuses two ranks on one card).  Saves the gathered results
+    (rank 0), its own launch counts, walls and the all-reduce's time
+    under ``out``."""
+    import torch.distributed as dist
+    from frei_tpu_torch.parallel import (initialize_distributed, make_mesh,
+                                         solve_ensemble)
+    from frei_tpu_torch.rt import sweeps
+    from frei_tpu_torch.rt.physics import PhysicsParams
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(1)    # two ranks and their parent share the host
+    rank = int(os.environ["RANK"])
+    initialize_distributed(f"{os.environ['MASTER_ADDR']}:"
+                           f"{os.environ['MASTER_PORT']}", 2, rank,
+                           backend="gloo", timeout=timedelta(seconds=300))
+    tally = dict.fromkeys(kernel_wrappers(), 0)
+    info, saved = {"rank": rank, "backend": dist.get_backend()}, {}
+    meshes = {s: make_mesh(*s) for s in ((2, 1), (1, 2))}
+
+    def plane(grid, T0, cfg, shape, params=None):
+        consts, p, _ = solver_args(grid)
+        return counted(tally, lambda: solve_ensemble(
+            T0, consts, params or p, grid.opacities, grid.chemistry, cfg,
+            mesh=meshes[shape]))
+
+    # float64, 64 columns: "cuda" on both meshes, "loop" and "iteration"
+    # on the columns mesh, "iteration" refused on the bins mesh
+    g64 = make_grid(torch.float64)
+    T64 = columns(g64, PAR64_COLUMNS)
+    for engine, shapes in (("cuda", ((2, 1), (1, 2))), ("loop", ((2, 1),)),
+                           ("iteration", ((2, 1),))):
+        for s in shapes:
+            r = plane(g64, T64, fixed(engine, PAR_ITERS), s)
+            for f in ("flux", "final_temps"):
+                saved[f"{engine}/{s[0]}x{s[1]}/{f}"] = gather(getattr(r, f))
+    try:
+        plane(g64, T64, fixed("iteration", PAR_ITERS), (1, 2))
+    except ValueError as e:
+        info["iteration_bins_error"] = str(e)
+
+    # gradients, float64: the differentiable "eager" solve on both meshes,
+    # the loss this rank's part of sum(flux^2) / 1e26, the gradients
+    # summed over the world
+    p0 = g64.planet.physics_params()
+    for s in ((2, 1), (1, 2)):
+        T = T64[:PAR_GRAD_COLUMNS].clone().requires_grad_(True)
+        g = torch.tensor(float(p0.g), dtype=torch.float64, device=T.device,
+                         requires_grad=True)
+        par = PhysicsParams(g=g, m_bar=p0.m_bar, alpha=p0.alpha,
+                            n_dof=p0.n_dof)
+        r = plane(g64, T, fixed("auto", 2, differentiable=True), s, par)
+        loss = (r.flux.to_local() ** 2).sum() / 1e26
+        loss.backward()
+        grads = torch.cat([T.grad.reshape(-1), g.grad.reshape(1),
+                           loss.detach().reshape(1)])
+        dist.all_reduce(grads)
+        saved[f"grad/{s[0]}x{s[1]}"] = grads
+    del g64, T64
+
+    # float32 at the headline on the bins mesh: 250 bins a rank through
+    # the sweep kernels; one iteration (held), then 20 (finite, timed)
+    g32 = make_grid(torch.float32)
+    T32 = columns(g32, N_COLUMNS)
+    r = plane(g32, T32, fixed("cuda", 1), (1, 2))
+    saved["f32/1/flux"] = gather(r.flux)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = plane(g32, T32, fixed("cuda"), (1, 2))
+        walls.append(time.perf_counter() - t0)
+    assert torch.isfinite(r.flux.to_local()).all(), "non-finite flux"
+    saved["f32/20/flux"] = gather(r.flux)
+    info["walls"] = walls[1:]
+    # the same solve with each quadrature all-reduce timed (synchronized
+    # before and after): its share of that run's wall
+    plain, spent = sweeps._all_reduce, []
+
+    def timed(x, group):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = plain(x, group)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+        return y
+
+    sweeps._all_reduce = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plane(g32, T32, fixed("cuda"), (1, 2))
+        info["timed_wall"] = time.perf_counter() - t0
+    finally:
+        sweeps._all_reduce = plain
+    info["all_reduce_s"] = sum(spent)
+    info["all_reduces"] = len(spent)
+    info["launches"] = tally
+    (out / f"rank{rank}.json").write_text(json.dumps(info))
+    if rank == 0:
+        torch.save({k: v.cpu() for k, v in saved.items()}, out / "saved.pt")
+    dist.destroy_process_group()
+
+
+def phase_parallel(root):
+    """Phase 4g, the parallel plane (queue 1 item 14) on one card: NCCL on
+    a world of one (:func:`phase_parallel_one`), then a world of two gloo
+    ranks on cuda:0 (:func:`parallel_rank`, this file started twice by
+    ``parallel.launch.run_ranks``, which kills both on a failure or after
+    300 s), held against one-process solves here: float64 (2, 1) and
+    (1, 2) meshes on ``"cuda"`` and (2, 1) on ``"loop"`` and
+    ``"iteration"`` at 64 columns x 500 x 30, 3 iterations, flux and final
+    temperatures at rtol 1e-10 (the top layer's at 1e-8); ``"iteration"``
+    refused on (1, 2); the
+    differentiable solve's gradients on both meshes, summed over the
+    ranks, at rtol 1e-10 (8 columns, 2 iterations); float32 on (1, 2) at
+    the headline after one iteration, flux at rtol 1e-4 plus 1e-5 of the
+    largest (phase 3's float32 rtol; the update of the thin top layers is
+    rounding noise), and after 20 (finite; the difference logged, as
+    float32 trajectories diverge), its wall and the all-reduce's share.
+    Returns the plane's launch counts and its numbers."""
+    from frei_tpu_torch.parallel.launch import run_ranks
+    from frei_tpu_torch.rt.physics import PhysicsParams
+    from frei_tpu_torch.rt.solver import solve_rc_batched
+    t_start = time.perf_counter()
+    tally = dict.fromkeys(kernel_wrappers(), 0)
+    one = phase_parallel_one(tally)
+
+    # the one-process references
+    ref = {}
+    g64 = make_grid(torch.float64)
+    T64 = columns(g64, PAR64_COLUMNS)
+    args64 = solver_args(g64)
+    for engine in ("cuda", "loop", "iteration"):
+        r = solve_rc_batched(T64, *args64, fixed(engine, PAR_ITERS))
+        ref[engine] = {f: getattr(r, f).cpu() for f in ("flux",
+                                                        "final_temps")}
+    p0 = g64.planet.physics_params()
+    T = T64[:PAR_GRAD_COLUMNS].clone().requires_grad_(True)
+    g = torch.tensor(float(p0.g), dtype=torch.float64, device=T.device,
+                     requires_grad=True)
+    par = PhysicsParams(g=g, m_bar=p0.m_bar, alpha=p0.alpha, n_dof=p0.n_dof)
+    r = solve_rc_batched(T, args64[0], par, args64[2],
+                         fixed("auto", 2, differentiable=True))
+    loss = (r.flux ** 2).sum() / 1e26
+    loss.backward()
+    ref["grad"] = torch.cat([T.grad.reshape(-1), g.grad.reshape(1),
+                             loss.detach().reshape(1)]).cpu()
+    g32 = make_grid(torch.float32)
+    T32 = columns(g32, N_COLUMNS)
+    args32 = solver_args(g32)
+    ref["f32/1"] = solve_rc_batched(T32, *args32, fixed("cuda", 1)).flux.cpu()
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = solve_rc_batched(T32, *args32, fixed("cuda"))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    ref["f32/20"] = r.flux.cpu()
+    one_wall = walls[1:]
+    del g64, T64, args64, T, g, par, r, loss, g32, T32, args32
+    torch.cuda.empty_cache()
+
+    out = root / "chip_smoke_data" / "parallel"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    try:
+        t0 = time.perf_counter()
+        run_ranks(2, [Path(__file__).resolve(), "--parallel-rank", out],
+                  timeout=300, cwd=root)
+        ranks_wall = time.perf_counter() - t0
+        infos = [json.loads((out / f"rank{r}.json").read_text())
+                 for r in range(2)]
+        got = torch.load(out / "saved.pt")
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    assert [i["backend"] for i in infos] == ["gloo", "gloo"], infos
+    for key, r in (("cuda/2x1", "cuda"), ("cuda/1x2", "cuda"),
+                   ("loop/2x1", "loop"), ("iteration/2x1", "iteration")):
+        # the top layer's temperature at 1e-8: its update is a nearly
+        # cancelling difference of quadratures, which a bins split sums in
+        # another order (1.6e-10 apart after 3 iterations; phase 4 holds
+        # the kernels' temperatures to the eager engine's at 1e-8 for the
+        # same reason)
+        for label, a, b, rtol in (
+                ("flux", got[f"{key}/flux"], ref[r]["flux"], 1e-10),
+                ("final temps below the top layer",
+                 got[f"{key}/final_temps"][:, :-1],
+                 ref[r]["final_temps"][:, :-1], 1e-10),
+                ("top layer's final temp", got[f"{key}/final_temps"][:, -1],
+                 ref[r]["final_temps"][:, -1], 1e-8)):
+            q = check_close(f"{key} {label}", a, b, rtol, 0.0)
+            log(f"[parallel] gloo, two ranks on cuda:0, {key} float64 "
+                f"{PAR64_COLUMNS} x {N_BINS} x {N_LAYERS} x {PAR_ITERS}: "
+                f"{label} against the one-process solve max rel "
+                f"{rel_err(a, b)[0]:.3e} (rtol {rtol:.0e}), err/bound "
+                f"{q:.3f}")
+    for i in infos:
+        assert "engine 'iteration' does not support a bins-sharded mesh" \
+            in i.get("iteration_bins_error", ""), i
+    for s in ("2x1", "1x2"):
+        q = check_close(f"gradient {s}", got[f"grad/{s}"], ref["grad"],
+                        1e-10, 0.0)
+        log(f"[parallel] gradients on {s}, summed over the ranks, against "
+            f"the one-process ones (dL/dT0 of {PAR_GRAD_COLUMNS} columns, "
+            f"dL/dg, the loss): max rel "
+            f"{rel_err(got[f'grad/{s}'], ref['grad'])[0]:.3e}, err/bound "
+            f"{q:.3f}")
+    f1 = ref["f32/1"]
+    q = check_close("float32 (1, 2) one iteration", got["f32/1/flux"], f1,
+                    1e-4, 1e-5 * float(f1.abs().max()))
+    d20 = float((got["f32/20/flux"] - ref["f32/20"]).abs().max()
+                / ref["f32/20"].abs().max())
+    walls = infos[0]["walls"]
+    share = infos[0]["all_reduce_s"] / infos[0]["timed_wall"]
+    log(f"[parallel] float32 (1, 2) mesh, {N_COLUMNS} x {N_BINS} x "
+        f"{N_LAYERS}, 250 bins a rank: after one iteration flux max rel "
+        f"{rel_err(got['f32/1/flux'], f1)[0]:.3e} (err/bound {q:.3f}); after "
+        f"{N_ITERS} finite, max |dflux| / max flux {d20:.3e} (not asserted); "
+        f"walls rank 0 {', '.join(f'{w:.4f}' for w in walls)} s, one "
+        f"process {', '.join(f'{w:.4f}' for w in one_wall)} s; "
+        f"{infos[0]['all_reduces']} quadrature all-reduces "
+        f"{infos[0]['all_reduce_s']:.4f} s of a {infos[0]['timed_wall']:.4f} "
+        f"s run ({share:.1%}); the two ranks' call {ranks_wall:.1f} s")
+    for i in infos:
+        for k, n in i["launches"].items():
+            tally[k] += n
+    wall = time.perf_counter() - t_start
+    return dict(launches=tally, nccl_walls=one, f32_walls=walls,
+                f32_one_process=one_wall, all_reduce_share=share,
+                wall=wall)
+
+
 def phase_headline(engines=("loop", "iteration", "cuda", "eager"), runs=3,
                    leg="headline", args=None):
     """Each engine's solve of the leg: one warm-up and ``runs`` timed
@@ -2035,6 +2394,10 @@ def main(argv):
                  "run needs an NVIDIA GPU")
     root = Path(__file__).resolve().parent
     sys.path.insert(0, str(root))
+    if argv[:1] == ["--parallel-rank"]:
+        # one rank of phase 4g's world of two, started by phase_parallel
+        parallel_rank(Path(argv[1]))
+        return
     from frei_tpu_torch import native
     from frei_tpu_torch.ops import iteration_cuda as IC
     from frei_tpu_torch.ops import kappa_cuda as KC
@@ -2090,6 +2453,17 @@ def main(argv):
         log(f"[differentiable] phase 4f passed in "
             f"{phase_differentiable(root):.1f} s")
         phase_gradient_leg()
+        return
+    if argv == ["--parallel"]:
+        # the parallel plane alone: the sweep and whole-iteration kernels,
+        # phase 4g
+        with ThreadPoolExecutor(2) as pool:
+            reports = list(pool.map(lambda m: m.build(), (S, IC)))
+        log("\n".join(f"[build] {line}"
+                      for line in ptxas_summary("".join(reports))))
+        par = phase_parallel(root)
+        log(f"[parallel] phase 4g passed in {par['wall']:.1f} s, launches "
+            f"{json.dumps(par['launches'])}; {smi}")
         return
     if argv:
         sys.exit(f"chip_smoke: unknown arguments {argv}")
@@ -2174,6 +2548,12 @@ def main(argv):
         f"{min(r['walls']):.4f} s, peak {r['peak_gb']:.2f} GB"
         for n, r in grad_leg.items()))
 
+    # phase 4g: the parallel plane (NCCL on a world of one, then two gloo
+    # ranks on this card)
+    par = phase_parallel(root)
+    log(f"[parallel] phase 4g passed in {par['wall']:.1f} s, launches "
+        f"{json.dumps(par['launches'])}; {smi}")
+
     # each kernel: its time and its plain twin's at the main path's shapes,
     # the least time the card could take for the same work (bytes moved
     # over the HBM rate or float operations over the FP32 peak, whichever
@@ -2199,7 +2579,8 @@ def main(argv):
                       "launches_population":
                           pop["cuda"]["launches"][name_],
                       "launches_chemistry":
-                          chem_leg["cuda"]["launches"][name_]}))
+                          chem_leg["cuda"]["launches"][name_],
+                      "launches_parallel": par["launches"][name_]}))
     for k, line in (("iteration", 163), ("loop", 297)):
         name_ = f"rc_{k}"
         rows.append((name_, "iteration.cu",
@@ -2208,7 +2589,8 @@ def main(argv):
                      {"launches_chemistry":
                           chem_leg[k]["launches"][name_],
                       "err_over_tol_chemistry":
-                          whole_chem[k]["err_over_tol"]}))
+                          whole_chem[k]["err_over_tol"],
+                      "launches_parallel": par["launches"][name_]}))
     for k, name_, src, replaces in (
             ("kappa", "kappa_lookup", "kappa.cu",
              "frei_tpu/ops/kappa_pallas.py:48"),

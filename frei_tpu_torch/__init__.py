@@ -4,7 +4,9 @@ The PyTorch port of ``frei_tpu``, for one NVIDIA H100: the same
 grids, opacity plane (on-disk stores, the streamed rebin, the binned
 cache, the batched kappa lookup), mock and equilibrium chemistry, and
 two-stream radiative-convective solver (batched, per planet and
-differentiable; standalone sweep drivers, checkpoints, diagnostics),
+differentiable; standalone sweep drivers, checkpoints, diagnostics) and
+its parallel plane on ``torch.distributed`` (``parallel``: column- and
+bins-sharded ensembles over a ``DeviceMesh``),
 with every Pallas kernel of ``frei_tpu`` written by hand in CUDA
 (``csrc/*.cu``).  It imports no JAX;
 ``frei_tpu`` stays the reference it is tested against.
@@ -38,6 +40,9 @@ from .opacity.etl import (binned_opacity_stack, make_synthetic_store,
 from .opacity.tables import (OpacityStack, kappa_from_stack,
                              load_example_opacity, make_opacity_stack,
                              set_interp_mode)
+from .parallel import (BINS, COLUMNS, column_sharding, initialize_distributed,
+                       make_mesh, replicated, shard_solver_inputs,
+                       solve_ensemble, solve_population)
 from .rt.physics import PhysicsParams
 from .rt.solver import (RTConstants, RTResult, SolverConfig, solve_rc,
                         solve_rc_batched)
@@ -58,6 +63,9 @@ __all__ = [
     "solve_rc", "solve_rc_batched", "emit_sweep", "absorb_sweep",
     "emit", "absorb", "StandaloneResult",
     "f_toa", "b_star",
+    "BINS", "COLUMNS", "column_sharding", "make_mesh", "replicated",
+    "initialize_distributed", "shard_solver_inputs", "solve_ensemble",
+    "solve_population",
 ]
 
 __version__ = "0.1.0"

@@ -41,7 +41,7 @@ import torch
 
 from .. import constants as const
 from ..rt import physics
-from ..rt.sweeps import top_pressure
+from ..rt.sweeps import bins_sum, top_pressure
 from .cuda_build import BUILD_DIR, CSRC, build_library, load_library
 from .twostream import two_stream_couplers_g0
 
@@ -494,21 +494,27 @@ def absorb_epilogue(temps, sums, pressures, params):
 
 
 def emit_sweep_cuda(temps, F_up, F_down, k_all, sc: SweepConsts,
-                    pressures, params, done=None, with_dtaus=False):
+                    pressures, params, done=None, with_dtaus=False,
+                    bins_group=None):
     """Batched emit sweep through :func:`emit_kernel` plus the
     temperature epilogue.  Returns ``(F_up, F_down, temps - dT, dT)``,
     plus the dtaus diagnostic when ``with_dtaus``; ``done`` (B,) bool
-    freezes those columns' flux rows."""
+    freezes those columns' flux rows.  ``bins_group``: the process group
+    of a bins-sharded solve, over which the kernel's (B, 4, L-1)
+    quadratures are summed before the epilogue
+    (`frei_tpu/ops/sweep_pallas.py:664-668`)."""
     F_up_new, F_down_new, sums, *dtaus = emit_kernel(
         temps, F_up, F_down, k_all, sc, done, with_dtaus=with_dtaus)
+    sums = bins_sum(sums, bins_group)
     return (F_up_new, F_down_new,
             *emit_epilogue(temps, sums, pressures, params), *dtaus)
 
 
 def absorb_sweep_cuda(temps, F_up, F_down, k_all, sc: SweepConsts,
-                      pressures, params, done=None):
+                      pressures, params, done=None, bins_group=None):
     """Batched absorb sweep (mirror of :func:`emit_sweep_cuda`)."""
     F_up_new, F_down_new, sums = absorb_kernel(temps, F_up, F_down, k_all,
                                                sc, done)
+    sums = bins_sum(sums, bins_group)
     return (F_up_new, F_down_new,
             *absorb_epilogue(temps, sums, pressures, params))

@@ -29,6 +29,14 @@ picks ``"cuda"`` for CUDA tensors and ``"eager"`` otherwise.
 ``"eager"`` and ``"cuda"`` also solve a population, one planet per
 column: per-column g, alpha, m_bar and F_toa (:func:`solve_rc_batched`).
 
+On a bins-sharded mesh (``parallel.solve_ensemble`` sets
+``cfg.bins_axis``) each rank solves a slice of the wavelengths:
+``"eager"`` and ``"cuda"`` sum each sweep's quadratures over the bins
+group, and the ranks of a group leave the loop together (one MAX
+all-reduce of "some column still running" per iteration).
+``"iteration"`` and ``"loop"`` refuse: their kernels compute the
+temperature update from their own quadratures.
+
 ``SolverConfig(differentiable=True)`` makes the solve reverse-mode
 differentiable (gradient-based retrieval, ``api.Grid.spectrum_fn``): it
 runs on ``"eager"`` (the kernels have no backward), for exactly
@@ -77,7 +85,9 @@ class SolverConfig(NamedTuple):
     associative: bool = False
     progress: bool = False         # print per-iteration telemetry
     engine: str = "auto"           # see ENGINES
-    bins_axis: str = ""            # bins-sharded solves: ROADMAP item 14
+    # the mesh dim the wavelengths are sharded over (``solve_rc_batched``'s
+    # ``mesh``); set by ``parallel.solve_ensemble``
+    bins_axis: str = ""
     # reverse-mode differentiable fixed-horizon solve ("eager" only)
     differentiable: bool = False
     # iterations per rematerialization chunk of the differentiable solve:
@@ -241,7 +251,7 @@ def _check_whole_iteration(engine, cfg: SolverConfig, consts, params,
             "(kappa_all.iteration_hook)")
 
 
-def _check_supported(cfg: SolverConfig):
+def _check_supported(cfg: SolverConfig, mesh):
     if cfg.differentiable and cfg.progress:
         # the backward pass would replay the prints of every iteration
         raise ValueError("cfg.progress prints from inside the loop, which "
@@ -250,14 +260,42 @@ def _check_supported(cfg: SolverConfig):
     if cfg.differentiable and cfg.remat_chunk < 0:
         raise ValueError(f"remat_chunk must be >= 0 (0 = auto), got "
                          f"{cfg.remat_chunk}")
-    if cfg.bins_axis:
-        raise NotImplementedError(
-            "bins_axis (bins-sharded solves) is ROADMAP queue 1 item 14")
+    if cfg.bins_axis and mesh is None:
+        raise ValueError(
+            f"cfg.bins_axis={cfg.bins_axis!r} names a dim of a device mesh, "
+            "and no mesh was given: shard a solve with "
+            "parallel.solve_ensemble, which slices the wavelengths and "
+            "passes the mesh")
+
+
+def _bins_group(cfg: SolverConfig, mesh):
+    """The process group the quadratures are summed over: ``mesh``'s
+    ``cfg.bins_axis`` dim, ``None`` when that has one rank or is unset."""
+    if not cfg.bins_axis:
+        return None
+    group = mesh.get_group(cfg.bins_axis)
+    return group if group.size() > 1 else None
+
+
+def _some_running(done, group) -> bool:
+    """Whether a column of the solve still runs.  Over a bins group the
+    ranks must leave the loop together, or one would wait forever in the
+    next sweep's all-reduce: they agree by a MAX all-reduce of the flag
+    (their ``done`` flags are equal only if every rank got the same bits
+    from the quadratures' all-reduce).  Ranks of different column groups
+    may stop at different iterations."""
+    running = ~done.all()
+    if group is None:
+        return bool(running)
+    import torch.distributed as dist
+    flag = running.to(torch.int32).reshape(1)
+    dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=group)
+    return bool(flag)
 
 
 def solve_rc_batched(init_temps, consts: RTConstants, params: PhysicsParams,
                      kappa_all: Callable, cfg: SolverConfig = SolverConfig(),
-                     init_fluxes=None) -> RTResult:
+                     init_fluxes=None, mesh=None) -> RTResult:
     """Batch-native radiative-convective solve over (B, L) initial
     profiles, with per-column trajectories identical to independent
     single-column solves.
@@ -280,6 +318,14 @@ def solve_rc_batched(init_temps, consts: RTConstants, params: PhysicsParams,
     field of ``params``, ``consts.F_toa`` and ``init_fluxes`` (see the
     module docstring); ``"auto"`` resolves to ``"eager"``, and the kernel
     engines refuse.
+
+    ``mesh``: the ``DeviceMesh`` of a sharded solve, whose
+    ``cfg.bins_axis`` dim this rank's wavelengths are a slice of (the
+    inputs are the rank's slices: ``parallel.solve_ensemble`` cuts them).
+    Each sweep's quadratures are then summed over that dim's group,
+    differentiably: the gradient of a tensor every rank of the group
+    holds whole (``init_temps``, ``params``) is this rank's part of it,
+    and the caller sums it over the group.
     """
     B, L = init_temps.shape
     W = consts.lam_cm.shape[0]
@@ -289,7 +335,8 @@ def solve_rc_batched(init_temps, consts: RTConstants, params: PhysicsParams,
     hook = getattr(kappa_all, "iteration_hook", None)
     if engine in ("iteration", "loop"):
         _check_whole_iteration(engine, cfg, consts, params, hook)
-    _check_supported(cfg)
+    _check_supported(cfg, mesh)
+    group = _bins_group(cfg, mesh)
 
     if engine in ("iteration", "loop"):
         from ..ops.iteration_cuda import (make_iteration_pack,
@@ -324,16 +371,17 @@ def solve_rc_batched(init_temps, consts: RTConstants, params: PhysicsParams,
         def emit(T, Fu, Fd, done=None, with_dtaus=False):
             return emit_sweep_cuda(T, Fu, Fd, kap_fn(T), sc,
                                    consts.pressures, params, done=done,
-                                   with_dtaus=with_dtaus)
+                                   with_dtaus=with_dtaus, bins_group=group)
 
         def absorb(T, Fu, Fd, done=None):
             return absorb_sweep_cuda(T, Fu, Fd, kap_fn(T), sc,
-                                     consts.pressures, params, done=done)
+                                     consts.pressures, params, done=done,
+                                     bins_group=group)
     else:
         sweep_kw = dict(sigma_scat=consts.sigma_scat, F_toa=consts.F_toa,
                         lam_cm=consts.lam_cm, trapz_w=consts.trapz_w,
                         pressures=consts.pressures, params=params,
-                        associative=cfg.associative)
+                        associative=cfg.associative, bins_group=group)
 
         def emit(T, Fu, Fd, done=None, with_dtaus=False):
             r = emit_sweep(T, Fu, Fd, kappa_all(T, consts.pressures),
@@ -455,7 +503,7 @@ def solve_rc_batched(init_temps, consts: RTConstants, params: PhysicsParams,
             rows += out
     else:
         for it in range(T):
-            if it and bool(st.done.all()):
+            if it and not _some_running(st.done, group):
                 break
             st, r = body(it, st)
             rows.append(r)

@@ -11,6 +11,12 @@ maps (``frei_tpu``'s ``lax.associative_scan``, for deep grids).
 Everything else (couplers, Planck sources, quadratures and the
 temperature tendencies) is vectorized over all layers.
 
+On a bins-sharded mesh (``parallel.solve_ensemble``) each rank holds a
+slice of the wavelengths, and a sweep's four bolometric quadratures are
+partial sums: ``bins_group`` completes them with one all-reduce of the
+(B, 4, L-1) block per sweep (:func:`bins_sum`), the counterpart of the
+psum the JAX package's GSPMD inserts.
+
 Boundary quirks kept from the reference: the top-layer pressure
 extrapolation ``p2 = p[-1] p[-2] / p[-3]``, dtau output seeded with a
 row of ones, emit leaving layer 0 untouched and never storing the top
@@ -30,7 +36,7 @@ from . import physics
 from .physics import PhysicsParams
 
 __all__ = ["SweepResult", "emit_sweep", "absorb_sweep", "bolometric_flux",
-           "emit_dtaus", "top_pressure"]
+           "bins_sum", "emit_dtaus", "top_pressure"]
 
 
 def top_pressure(p):
@@ -70,6 +76,45 @@ def bolometric_flux(flux, trapz_w):
     return flux @ trapz_w
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """All-reduce SUM over ``group`` that carries gradients: every rank's
+    output is the sum of every rank's input, so the gradient of an input
+    is the sum over ranks of the gradients of the outputs, another
+    all-reduce SUM.  (An in-place ``dist.all_reduce`` would drop them
+    without an error.)"""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x.clone(), group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce(grad.clone(), ctx.group), None
+
+
+def _all_reduce(x, group):
+    import torch.distributed as dist
+    dist.all_reduce(x, group=group)
+    return x
+
+
+def bins_sum(block, group):
+    """``block`` summed over the ranks of ``group`` (the bins group of a
+    sharded solve), differentiably; ``block`` itself when ``group`` is
+    ``None``."""
+    if group is None:
+        return block
+    return _AllReduceSum.apply(block, group)
+
+
+def _quadratures(rows, trapz_w, group):
+    """The four bolometric quadratures of a sweep, completed over the
+    bins group as one (B, 4, L-1) block: one collective a sweep."""
+    sums = torch.stack([bolometric_flux(r, trapz_w) for r in rows], dim=1)
+    return bins_sum(sums, group).unbind(1)
+
+
 def _affine_prefix_seq(A, c, init):
     """z_j = A_j z_{j-1} + c_j along axis 1, seeded with ``init``."""
     out = []
@@ -103,7 +148,7 @@ def _affine_prefix(A, c, init, associative):
 
 def emit_sweep(temps, F_up, F_down, k_all, sigma_scat, F_toa,
                lam_cm, trapz_w, pressures, params: PhysicsParams,
-               associative: bool = False) -> SweepResult:
+               associative: bool = False, bins_group=None) -> SweepResult:
     """One bottom-to-top emission sweep (`twostream.py:290-421`).
 
     ``temps`` (B, L); ``F_up``, ``F_down``, ``k_all`` (B, L, W);
@@ -111,6 +156,8 @@ def emit_sweep(temps, F_up, F_down, k_all, sigma_scat, F_toa,
     (B, W) per column; ``pressures`` (L,), bottom of the atmosphere
     first.  ``params`` fields are scalars or (B, 1) per-column values.
     ``associative`` runs the layer recurrence as a log-depth scan.
+    ``bins_group``: the process group of a bins-sharded solve, over which
+    the quadratures are summed (``None``: every wavelength is here).
     """
     B = temps.shape[0]
     p = pressures
@@ -141,10 +188,8 @@ def emit_sweep(temps, F_up, F_down, k_all, sigma_scat, F_toa,
     F_up_new = torch.cat([F_up[:, :2], z[:, :-1]], dim=1)
     F_down_new = torch.cat([F_down[:, :1], F1_down], dim=1)
 
-    bu2 = bolometric_flux(z, trapz_w)
-    bd2 = bolometric_flux(F2_down, trapz_w)
-    bu1 = bolometric_flux(u, trapz_w)
-    bd1 = bolometric_flux(F1_down, trapz_w)
+    bu2, bd2, bu1, bd1 = _quadratures((z, F2_down, u, F1_down), trapz_w,
+                                      bins_group)
     div, dz = physics.div_bol_net_flux(bu2, bd2, bu1, bd1,
                                        T1, T2, p1, p2, params)
     dt = physics.radiative_timestep(T1, T2, p1, p2, div, dz, params)
@@ -157,7 +202,7 @@ def emit_sweep(temps, F_up, F_down, k_all, sigma_scat, F_toa,
 
 def absorb_sweep(temps, F_up, F_down, k_all, sigma_scat, F_toa,
                  lam_cm, trapz_w, pressures, params: PhysicsParams,
-                 associative: bool = False) -> SweepResult:
+                 associative: bool = False, bins_group=None) -> SweepResult:
     """One top-to-bottom absorption sweep (`twostream.py:424-550`):
     layers L-2 .. 0, propagating F_down with the stale F_up."""
     del F_toa  # enters only through the caller-maintained F_down state
@@ -188,10 +233,8 @@ def absorb_sweep(temps, F_up, F_down, k_all, sigma_scat, F_toa,
     F_down_new = torch.cat([d, F_down[:, -1:]], dim=1)
     F_up_new = torch.cat([F_up[:, :1], F2_up], dim=1)
 
-    bu2 = bolometric_flux(F2_up, trapz_w)
-    bd2 = bolometric_flux(d_next, trapz_w)
-    bu1 = bolometric_flux(F1_up_stale, trapz_w)
-    bd1 = bolometric_flux(d, trapz_w)
+    bu2, bd2, bu1, bd1 = _quadratures((F2_up, d_next, F1_up_stale, d),
+                                      trapz_w, bins_group)
     div, dz = physics.div_bol_net_flux(bu2, bd2, bu1, bd1,
                                        T1, T2, p1, p2, params)
     dt = physics.radiative_timestep(T1, T2, p1, p2, div, dz, params)

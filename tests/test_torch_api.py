@@ -101,7 +101,8 @@ def test_import_loads_no_jax():
             "frei_tpu_torch.ops.rebin_cuda, frei_tpu_torch.ops.kappa_cuda, "
             "frei_tpu_torch.opacity.etl, frei_tpu_torch.native, "
             "frei_tpu_torch.chemistry, frei_tpu_torch.chemistry.api, "
-            "frei_tpu_torch.parallel, frei_tpu_torch.rt.standalone, "
+            "frei_tpu_torch.parallel, frei_tpu_torch.parallel.launch, "
+            "frei_tpu_torch.rt.standalone, "
             "frei_tpu_torch.io.checkpoint, frei_tpu_torch.diag.plot, "
             "frei_tpu_torch.stellar.phoenix; "
             "bad = [m for m in sys.modules if m.split('.')[0] == 'jax']; "
@@ -249,7 +250,9 @@ def test_unported_feature_raises(small, case):
         np.testing.assert_allclose(got.final_temps.numpy(),
                                    ref.final_temps.numpy(), rtol=1e-12)
         return
-    with pytest.raises(NotImplementedError, match="item 14"):
+    # ported: bins_axis names a dim of a sharded solve's mesh; without one
+    # it is refused with the entry point named
+    with pytest.raises(ValueError, match="solve_ensemble"):
         solve_rc_batched(T, consts, params, grid._kappa_fn,
                          cfg._replace(bins_axis="bins"))
 

@@ -12,8 +12,8 @@ Pinned here, in float64 on the CPU:
 * the flux matches the JAX package's differentiable ``"xla"`` solve at
   rtol 1e-9 (the two sum the quadratures in another order), and the
   gradients ``jax.grad`` at rtol 1e-7;
-* the kernel engines refuse with "autodiff", bins sharding with its
-  ROADMAP item;
+* the kernel engines refuse with "autodiff", and ``bins_axis`` without
+  a mesh with ``parallel.solve_ensemble`` named;
 * the float32 traps of the JAX package's record: a finite timestep
   gradient at zero divergence, and finite gravity gradients of the
   physics helpers.
@@ -194,8 +194,9 @@ def test_differentiable_rejects_kernel_engines(setup, engine):
 
 
 def test_differentiable_auto_runs_eager_and_refuses_the_rest(setup):
-    """``"auto"`` resolves to ``"eager"``; bins sharding still names its
-    ROADMAP item, and progress printing is refused."""
+    """``"auto"`` resolves to ``"eager"``; ``bins_axis`` without a mesh
+    is refused with ``parallel.solve_ensemble`` named, and progress
+    printing is refused."""
     _, grid, T0 = setup
     T0 = torch.tensor(T0)
     cfg = SolverConfig(n_timesteps=2, differentiable=True)
@@ -203,7 +204,7 @@ def test_differentiable_auto_runs_eager_and_refuses_the_rest(setup):
     ref = solve_rc_batched(T0, *_args(grid), SolverConfig(
         n_timesteps=2, engine="eager"))
     assert torch.equal(got.flux, ref.flux)
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(ValueError, match="solve_ensemble"):
         solve_rc_batched(T0, *_args(grid), cfg._replace(bins_axis="bins"))
     with pytest.raises(ValueError, match="progress"):
         solve_rc_batched(T0, *_args(grid), cfg._replace(progress=True))

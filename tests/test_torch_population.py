@@ -17,8 +17,13 @@ planet per column, with per-column g, alpha, m_bar and F_toa.
 * ``solve_population`` against per-planet solves (rtol 1e-9) and the JAX
   ``solve_population`` (rtol 1e-9);
 * the guards: wrong lengths raise on every engine, size-1 values
-  broadcast, the whole-iteration engines and mixed compositions refuse.
+  broadcast, the whole-iteration engines and mixed compositions refuse;
+* the mesh path in a world of two gloo ranks: a columns mesh solves, a
+  bins mesh is refused.
 """
+
+import os
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -38,6 +43,7 @@ from frei_tpu_torch import Grid, Planet  # noqa: E402
 from frei_tpu_torch.io import convert  # noqa: E402
 from frei_tpu_torch.ops import sweep_cuda as S  # noqa: E402
 from frei_tpu_torch.parallel import solve_population  # noqa: E402
+from frei_tpu_torch.parallel.launch import run_ranks  # noqa: E402
 from frei_tpu_torch.rt.solver import SolverConfig, solve_rc_batched  # noqa: E402
 
 torch.set_num_threads(2)
@@ -317,14 +323,63 @@ def test_population_refused_by_whole_iteration_engines(setup, engine):
                          SolverConfig(n_timesteps=2, engine=engine))
 
 
-def test_population_refuses_mixed_composition_and_mesh(setup):
+_MESH_WORKER = r"""
+import datetime, os, sys
+import numpy as np
+import torch
+torch.set_num_threads(1)
+import torch.distributed as dist
+from frei_tpu_torch import Grid, Planet, load_example_opacity
+from frei_tpu_torch.parallel import (initialize_distributed, make_mesh,
+                                     solve_population)
+
+out = sys.argv[1]
+initialize_distributed(
+    f"{os.environ['MASTER_ADDR']}:{os.environ['MASTER_PORT']}",
+    int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"]),
+    timeout=datetime.timedelta(seconds=60))
+inp = np.load(os.path.join(out, "inputs.npz"))
+grid = Grid(Planet.from_hot_jupiter(), n_wl_bins=24, n_layers=7,
+            T_ref=2400.0, dtype=torch.float64, device="cpu")
+grid.load_opacities(opacities=load_example_opacity(
+    grid, scale_factor=1.0, dtype=torch.float64))
+planets = [Planet(*p) for p in inp["planets"]]
+res = solve_population(torch.tensor(inp["T"]), grid, planets,
+                       mesh=make_mesh(2, 1, device_type="cpu"))
+saved = {f: getattr(res, f).full_tensor().numpy()
+         for f in ("flux", "final_temps")}
+try:
+    solve_population(torch.tensor(inp["T"]), grid, planets,
+                     mesh=make_mesh(1, 2, device_type="cpu"))
+except ValueError as e:
+    saved["error"] = np.array(str(e))
+if dist.get_rank() == 0:
+    np.savez(os.path.join(out, "results.npz"), **saved)
+dist.destroy_process_group()
+"""
+
+
+def test_population_refuses_mixed_composition_and_mesh(setup, tmp_path):
     """Planets of different m_bar are refused (`tests/test_parallel.py:
-    339-348`); a device mesh is ROADMAP queue 1 item 14."""
+    339-348`).  On a device mesh the planets shard over the columns: a
+    (2, 1) mesh of two gloo ranks solves two planets as the one-process
+    solve does (rtol 1e-10: a rank's batch of one sums in another order
+    than a batch of two), and a (1, 2) mesh is refused with "columns"
+    (`tests/test_parallel.py:297-321`)."""
     _, tg, T_np = setup
     planets = [Planet(5.0, 2.4, 24.79, 5800.0), Planet(5.0, 2.8, 24.79,
                                                        5800.0)]
     with pytest.raises(ValueError, match="m_bar"):
         solve_population(torch.tensor(T_np[:2]), tg, planets)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        solve_population(torch.tensor(T_np[:2]), tg, _torch_planets(2),
-                         mesh=object())
+    np.savez(tmp_path / "inputs.npz", T=T_np[:2], planets=np.array(_planets(2)))
+    repo = Path(__file__).resolve().parent.parent
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(repo)] + os.environ.get("PYTHONPATH", "").split(os.pathsep)))
+    run_ranks(2, ["-c", _MESH_WORKER, tmp_path], timeout=120, env=env,
+              cwd=repo)
+    got = np.load(tmp_path / "results.npz")
+    ref = solve_population(torch.tensor(T_np[:2]), tg, _torch_planets(2))
+    for f in ("flux", "final_temps"):
+        np.testing.assert_allclose(got[f], getattr(ref, f).numpy(),
+                                   rtol=1e-10, err_msg=f)
+    assert "columns" in str(got["error"])
