@@ -1,12 +1,14 @@
-"""Observability: solve metrics, progress lines, profiling, NaN checks.
+"""Observability: solve metrics, progress lines, profiling, spans, NaN
+checks.
 
 Counterpart of ``frei_tpu.diag.telemetry``: the reference's tqdm line
 (`frei/core.py:269-271,312-315`) as :func:`progress_printer`,
-structured per-solve metrics, a ``torch.profiler`` trace context and a
-NaN-debugging toggle.  Torch has no ``jax_debug_nans``, so the toggle
-sets a flag that the solver and the standalone drivers read: when it is
-on they check every sweep's outputs and raise ``FloatingPointError``
-naming the sweep and the iteration.
+structured per-solve metrics, a ``torch.profiler`` trace context, the
+program's named spans (:func:`span`) and a NaN-debugging toggle.  Torch
+has no ``jax_debug_nans``, so the toggle sets a flag that the solver and
+the standalone drivers read: when it is on they check every sweep's
+outputs and raise ``FloatingPointError`` naming the sweep and the
+iteration.
 """
 
 from __future__ import annotations
@@ -20,10 +22,12 @@ import numpy as np
 import torch
 
 __all__ = ["SolveMetrics", "flux_balance", "progress_printer",
-           "profile_trace", "enable_nan_debugging"]
+           "profile_trace", "span", "enable_nan_debugging"]
 
 # read by rt.solver and rt.standalone; set by enable_nan_debugging
 _NAN_CHECKS = False
+# what span() returns while no profiler records
+_OFF = contextlib.nullcontext()
 
 
 def _np(x):
@@ -48,12 +52,6 @@ class SolveMetrics:
         if self.converged_columns is not None:
             return self.converged_columns == self.columns
         return self.converged_layers == self.n_layers
-
-    @property
-    def columns_bins_per_second(self) -> float:
-        if self.wall_seconds <= 0:
-            return float("nan")
-        return self.columns * self.bins / self.wall_seconds
 
     def summary(self) -> str:
         tail = (self.max_dT_history[self.n_iterations - 1]
@@ -123,6 +121,18 @@ def profile_trace(log_dir):
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(str(out / f"trace_{time.time_ns()}.json"))
+
+
+def span(name: str):
+    """A context naming a piece of host work ``name`` in a
+    ``torch.profiler`` trace (:func:`profile_trace`'s Chrome trace among
+    them): a ``record_function`` range while a profiler records, on the
+    same clock as the card's kernels; spans nest, the enclosing one the
+    parent.  With no profiler active it is a shared null context, and
+    enters nothing of torch."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF
 
 
 def enable_nan_debugging(enable: bool = True):

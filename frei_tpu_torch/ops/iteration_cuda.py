@@ -37,6 +37,7 @@ from typing import NamedTuple
 import torch
 
 from .. import constants as const
+from ..diag import telemetry
 from ..rt.physics import PhysicsParams
 from ..rt.sweeps import top_pressure
 from .cuda_build import BUILD_DIR, CSRC, build_library, load_library
@@ -483,7 +484,8 @@ def rc_iteration_kernel(temps, F_up, F_down, done, pack: IterationPack,
                                   with_sums)
     if not F_up.is_cuda:
         raise RuntimeError(f"no iteration kernel for device {F_up.device}")
-    out = _iteration(temps, F_up, F_down, done, pack, params, with_sums)
+    with telemetry.span("frei.kernel.iteration"):
+        out = _iteration(temps, F_up, F_down, done, pack, params, with_sums)
     rc_iteration_kernel.launches += 1
     return out
 
@@ -515,26 +517,27 @@ def rc_loop_kernel(temps, F_up, F_down, pack: IterationPack,
                              n_zero_crossings, convergence_dT, with_sums)
     if not F_up.is_cuda:
         raise RuntimeError(f"no loop kernel for device {F_up.device}")
-    dims = _check(temps, F_up, F_down, pack)
-    B, L = dims[:2]
-    if n_timesteps < 0:
-        raise ValueError(f"n_timesteps must be >= 0, got {n_timesteps}")
-    Fu, Fd = torch.empty_like(F_up), torch.empty_like(F_down)
-    tout = torch.empty_like(temps)
-    hist = temps.new_empty((B, 2 * n_timesteps, L))
-    maxdt = temps.new_empty((B, n_timesteps))
-    n_iters = torch.empty((B,), dtype=torch.int32, device=temps.device)
-    conv = torch.empty((B, L), dtype=torch.bool, device=temps.device)
-    sums = temps.new_empty((B, 2, 4, L - 1)) if with_sums else None
-    args = _args(temps, F_up, F_down, pack, params, dims, sums, loop=True,
-                 F_up_out=Fu.data_ptr(), F_down_out=Fd.data_ptr(),
-                 temps_out=tout.data_ptr(), hist=hist.data_ptr(),
-                 max_dT=maxdt.data_ptr(), n_iters=n_iters.data_ptr(),
-                 conv=conv.data_ptr(),
-                 convergence_dT=float(convergence_dT),
-                 n_timesteps=int(n_timesteps),
-                 n_zero_crossings=min(int(n_zero_crossings), 2 ** 31 - 1))
-    _launch("loop", F_up.device, F_up.dtype, args)
+    with telemetry.span("frei.kernel.loop"):
+        dims = _check(temps, F_up, F_down, pack)
+        B, L = dims[:2]
+        if n_timesteps < 0:
+            raise ValueError(f"n_timesteps must be >= 0, got {n_timesteps}")
+        Fu, Fd = torch.empty_like(F_up), torch.empty_like(F_down)
+        tout = torch.empty_like(temps)
+        hist = temps.new_empty((B, 2 * n_timesteps, L))
+        maxdt = temps.new_empty((B, n_timesteps))
+        n_iters = torch.empty((B,), dtype=torch.int32, device=temps.device)
+        conv = torch.empty((B, L), dtype=torch.bool, device=temps.device)
+        sums = temps.new_empty((B, 2, 4, L - 1)) if with_sums else None
+        args = _args(temps, F_up, F_down, pack, params, dims, sums, loop=True,
+                     F_up_out=Fu.data_ptr(), F_down_out=Fd.data_ptr(),
+                     temps_out=tout.data_ptr(), hist=hist.data_ptr(),
+                     max_dT=maxdt.data_ptr(), n_iters=n_iters.data_ptr(),
+                     conv=conv.data_ptr(),
+                     convergence_dT=float(convergence_dT),
+                     n_timesteps=int(n_timesteps),
+                     n_zero_crossings=min(int(n_zero_crossings), 2 ** 31 - 1))
+        _launch("loop", F_up.device, F_up.dtype, args)
     rc_loop_kernel.launches += 1
     return (tout, Fu, Fd, hist, maxdt, n_iters, conv) + (
         (sums,) if with_sums else ())

@@ -40,6 +40,7 @@ from typing import NamedTuple
 import torch
 
 from .. import constants as const
+from ..diag import telemetry
 from ..rt import physics
 from ..rt.sweeps import bins_sum, top_pressure
 from .cuda_build import BUILD_DIR, CSRC, build_library, load_library
@@ -416,7 +417,9 @@ def _launch(direction: str, temps, F_up, F_down, kappa, sc: SweepConsts,
 def _dispatch(direction, plain, temps, F_up, F_down, kappa, sc, done,
               **kw):
     if F_up.is_cuda:
-        out = _launch(direction, temps, F_up, F_down, kappa, sc, done, **kw)
+        with telemetry.span(f"frei.kernel.{direction}"):
+            out = _launch(direction, temps, F_up, F_down, kappa, sc, done,
+                          **kw)
         wrapper = emit_kernel if direction == "emit" else absorb_kernel
         wrapper.launches += 1
         return out

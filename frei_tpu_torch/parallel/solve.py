@@ -24,6 +24,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..diag import telemetry
 from ..opacity.hotpath import build_kappa_model
 from ..opacity.tables import OpacityStack
 from ..rt.physics import PhysicsParams
@@ -228,36 +229,37 @@ def solve_population(init_temps, grid, planets,
     each solves its columns, and the fields are DTensors sharded on
     columns.
     """
-    m_bar = planets[0].m_bar
-    if any(abs(p.m_bar - m_bar) > 1e-30 for p in planets):
-        raise ValueError(
-            "solve_population shares composition: all planets must "
-            "have the same m_bar (it sets chemistry + Rayleigh); "
-            "build separate grids for different compositions")
-    consts = grid._consts
-    dtype, device = consts.lam_cm.dtype, consts.lam_cm.device
-    lam_cm = np.asarray(grid.rt_grid.lam_cm)
-    f_toa = torch.as_tensor(
-        np.stack([f_toa_np(lam_cm, p.T_star, p.a_rstar) for p in planets]),
-        dtype=dtype, device=device)                       # (C, W)
-    g = torch.as_tensor([p.g for p in planets], dtype=dtype, device=device)
-    alpha = torch.as_tensor([p.alpha for p in planets], dtype=dtype,
-                            device=device)
-    if mesh is None:
-        T0 = torch.as_tensor(init_temps, dtype=dtype, device=device)
-    else:
-        n_columns, n_bins, c, _ = _dims(mesh)
-        if n_bins > 1:
+    with telemetry.span("frei.population.build"):
+        m_bar = planets[0].m_bar
+        if any(abs(p.m_bar - m_bar) > 1e-30 for p in planets):
             raise ValueError(
-                "solve_population shards the 'columns' axis only; use a "
-                "(n_columns, 1) mesh (per-planet F_toa rows are column "
-                "state, not spectral constants)")
-        T0 = _local_columns(init_temps, mesh, dtype, device)
-        sl = _cut(len(planets), n_columns, c, "the columns axis")
-        f_toa, g, alpha = f_toa[sl], g[sl], alpha[sl]
-    params = PhysicsParams(g=g, m_bar=torch.as_tensor(m_bar, dtype=dtype,
-                                                      device=device),
-                           alpha=alpha, n_dof=5)
+                "solve_population shares composition: all planets must "
+                "have the same m_bar (it sets chemistry + Rayleigh); "
+                "build separate grids for different compositions")
+        consts = grid._consts
+        dtype, device = consts.lam_cm.dtype, consts.lam_cm.device
+        lam_cm = np.asarray(grid.rt_grid.lam_cm)
+        f_toa = torch.as_tensor(
+            np.stack([f_toa_np(lam_cm, p.T_star, p.a_rstar) for p in planets]),
+            dtype=dtype, device=device)                       # (C, W)
+        g = torch.as_tensor([p.g for p in planets], dtype=dtype, device=device)
+        alpha = torch.as_tensor([p.alpha for p in planets], dtype=dtype,
+                                device=device)
+        if mesh is None:
+            T0 = torch.as_tensor(init_temps, dtype=dtype, device=device)
+        else:
+            n_columns, n_bins, c, _ = _dims(mesh)
+            if n_bins > 1:
+                raise ValueError(
+                    "solve_population shards the 'columns' axis only; use a "
+                    "(n_columns, 1) mesh (per-planet F_toa rows are column "
+                    "state, not spectral constants)")
+            T0 = _local_columns(init_temps, mesh, dtype, device)
+            sl = _cut(len(planets), n_columns, c, "the columns axis")
+            f_toa, g, alpha = f_toa[sl], g[sl], alpha[sl]
+        params = PhysicsParams(g=g, m_bar=torch.as_tensor(m_bar, dtype=dtype,
+                                                          device=device),
+                               alpha=alpha, n_dof=5)
     res = solve_rc_batched(T0, consts._replace(F_toa=f_toa), params,
                            grid._kappa_fn, cfg)
     return res if mesh is None else _as_dtensors(res, mesh)

@@ -284,13 +284,14 @@ def _some_running(done, group) -> bool:
     (their ``done`` flags are equal only if every rank got the same bits
     from the quadratures' all-reduce).  Ranks of different column groups
     may stop at different iterations."""
-    running = ~done.all()
-    if group is None:
-        return bool(running)
-    import torch.distributed as dist
-    flag = running.to(torch.int32).reshape(1)
-    dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=group)
-    return bool(flag)
+    with telemetry.span("frei.solver.host_read"):
+        running = ~done.all()
+        if group is None:
+            return bool(running)
+        import torch.distributed as dist
+        flag = running.to(torch.int32).reshape(1)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=group)
+        return bool(flag)
 
 
 def solve_rc_batched(init_temps, consts: RTConstants, params: PhysicsParams,
@@ -327,206 +328,210 @@ def solve_rc_batched(init_temps, consts: RTConstants, params: PhysicsParams,
     holds whole (``init_temps``, ``params``) is this rank's part of it,
     and the caller sums it over the group.
     """
-    B, L = init_temps.shape
-    W = consts.lam_cm.shape[0]
-    dtype, device = init_temps.dtype, init_temps.device
-    engine = _resolve_engine(cfg.engine, device, cfg.differentiable)
-    consts, params = _normalize_columns(consts, params, B, dtype, device)
-    hook = getattr(kappa_all, "iteration_hook", None)
-    if engine in ("iteration", "loop"):
-        _check_whole_iteration(engine, cfg, consts, params, hook)
-    _check_supported(cfg, mesh)
-    group = _bins_group(cfg, mesh)
+    with telemetry.span("frei.solve"):
+        B, L = init_temps.shape
+        W = consts.lam_cm.shape[0]
+        dtype, device = init_temps.dtype, init_temps.device
+        engine = _resolve_engine(cfg.engine, device, cfg.differentiable)
+        consts, params = _normalize_columns(consts, params, B, dtype, device)
+        hook = getattr(kappa_all, "iteration_hook", None)
+        if engine in ("iteration", "loop"):
+            _check_whole_iteration(engine, cfg, consts, params, hook)
+        _check_supported(cfg, mesh)
+        group = _bins_group(cfg, mesh)
 
-    if engine in ("iteration", "loop"):
-        from ..ops.iteration_cuda import (make_iteration_pack,
-                                          rc_iteration_kernel,
-                                          rc_loop_kernel)
-        pack = make_iteration_pack(consts, params, *hook)
-        # the kernels take the scalars as arguments: one host read per
-        # solve, not one per launch
-        scal = PhysicsParams(*(float(x) for x in (
-            params.g, params.m_bar, params.alpha)), n_dof=params.n_dof)
-        # their final emit runs on the sweep kernels on a CUDA device and
-        # on the eager sweeps otherwise
-        sweeps = "cuda" if device.type == "cuda" else "eager"
-    else:
-        sweeps = engine
-
-    if sweeps == "cuda":
-        from ..ops.sweep_cuda import (absorb_sweep_cuda, emit_sweep_cuda,
-                                      make_sweep_consts)
-        sc = make_sweep_consts(consts, params)
-        parts = getattr(kappa_all, "layer_parts", None)
-
-        if parts is not None:
-            ohs_fn, layer_tab = parts
-
-            def kap_fn(temps):
-                return (ohs_fn(temps), layer_tab)
+        if engine in ("iteration", "loop"):
+            from ..ops.iteration_cuda import (make_iteration_pack,
+                                              rc_iteration_kernel,
+                                              rc_loop_kernel)
+            pack = make_iteration_pack(consts, params, *hook)
+            # the kernels take the scalars as arguments: one host read per
+            # solve, not one per launch
+            scal = PhysicsParams(*(float(x) for x in (
+                params.g, params.m_bar, params.alpha)), n_dof=params.n_dof)
+            # their final emit runs on the sweep kernels on a CUDA device and
+            # on the eager sweeps otherwise
+            sweeps = "cuda" if device.type == "cuda" else "eager"
         else:
-            def kap_fn(temps):
-                return kappa_all(temps, consts.pressures).contiguous()
+            sweeps = engine
 
-        def emit(T, Fu, Fd, done=None, with_dtaus=False):
-            return emit_sweep_cuda(T, Fu, Fd, kap_fn(T), sc,
-                                   consts.pressures, params, done=done,
-                                   with_dtaus=with_dtaus, bins_group=group)
+        if sweeps == "cuda":
+            from ..ops.sweep_cuda import (absorb_sweep_cuda, emit_sweep_cuda,
+                                          make_sweep_consts)
+            sc = make_sweep_consts(consts, params)
+            parts = getattr(kappa_all, "layer_parts", None)
 
-        def absorb(T, Fu, Fd, done=None):
-            return absorb_sweep_cuda(T, Fu, Fd, kap_fn(T), sc,
-                                     consts.pressures, params, done=done,
-                                     bins_group=group)
-    else:
-        sweep_kw = dict(sigma_scat=consts.sigma_scat, F_toa=consts.F_toa,
-                        lam_cm=consts.lam_cm, trapz_w=consts.trapz_w,
-                        pressures=consts.pressures, params=params,
-                        associative=cfg.associative, bins_group=group)
+            if parts is not None:
+                ohs_fn, layer_tab = parts
 
-        def emit(T, Fu, Fd, done=None, with_dtaus=False):
-            r = emit_sweep(T, Fu, Fd, kappa_all(T, consts.pressures),
-                           **sweep_kw)
-            return (r.F_up, r.F_down, r.temps, r.dT) + (
-                (r.dtaus,) if with_dtaus else ())
+                def kap_fn(temps):
+                    return (ohs_fn(temps), layer_tab)
+            else:
+                def kap_fn(temps):
+                    return kappa_all(temps, consts.pressures).contiguous()
 
-        def absorb(T, Fu, Fd, done=None):
-            r = absorb_sweep(T, Fu, Fd, kappa_all(T, consts.pressures),
-                             **sweep_kw)
-            return r.F_up, r.F_down, r.temps, r.dT
+            def emit(T, Fu, Fd, done=None, with_dtaus=False):
+                return emit_sweep_cuda(T, Fu, Fd, kap_fn(T), sc,
+                                       consts.pressures, params, done=done,
+                                       with_dtaus=with_dtaus, bins_group=group)
 
+            def absorb(T, Fu, Fd, done=None):
+                return absorb_sweep_cuda(T, Fu, Fd, kap_fn(T), sc,
+                                         consts.pressures, params, done=done,
+                                         bins_group=group)
+        else:
+            sweep_kw = dict(sigma_scat=consts.sigma_scat, F_toa=consts.F_toa,
+                            lam_cm=consts.lam_cm, trapz_w=consts.trapz_w,
+                            pressures=consts.pressures, params=params,
+                            associative=cfg.associative, bins_group=group)
+
+            def emit(T, Fu, Fd, done=None, with_dtaus=False):
+                r = emit_sweep(T, Fu, Fd, kappa_all(T, consts.pressures),
+                               **sweep_kw)
+                return (r.F_up, r.F_down, r.temps, r.dT) + (
+                    (r.dtaus,) if with_dtaus else ())
+
+            def absorb(T, Fu, Fd, done=None):
+                r = absorb_sweep(T, Fu, Fd, kappa_all(T, consts.pressures),
+                                 **sweep_kw)
+                return r.F_up, r.F_down, r.temps, r.dT
+
+            if cfg.differentiable:
+                # a checkpoint per sweep, the opacity lookup included: the
+                # backward of one sweep holds its ~10 (B, L, W)
+                # intermediates, never both sweeps' sets at once
+                # (`frei_tpu/rt/solver.py:544-553`)
+                emit, absorb = _remat(emit), _remat(absorb)
+
+        def col(done, x):
+            return done.reshape(done.shape + (1,) * (x.ndim - 1))
+
+        if init_fluxes is None:
+            F_up = torch.zeros((B, L, W), dtype=dtype, device=device)
+            F_down = torch.zeros((B, L, W), dtype=dtype, device=device)
+        else:
+            F_up = torch.as_tensor(init_fluxes[0], dtype=dtype,
+                                   device=device).contiguous()
+            F_down = torch.as_tensor(init_fluxes[1], dtype=dtype,
+                                     device=device).contiguous()
+        temps = init_temps.contiguous()
+        if engine == "loop":
+            # the whole fixed-horizon loop in one kernel launch
+            (temps, F_up, F_down, hist, maxdT, n_iters,
+             conv) = rc_loop_kernel(temps, F_up, F_down, pack, scal,
+                                    cfg.n_timesteps, cfg.n_zero_crossings,
+                                    cfg.convergence_dT)
+            telemetry.check_finite("loop kernel's outputs", temps, F_up,
+                                   F_down)
+            Fu_f, Fd_f, T_f, _, dtaus = emit(temps, F_up, F_down,
+                                             with_dtaus=True)
+            telemetry.check_finite("final emit sweep", Fu_f, Fd_f, T_f)
+            return RTResult(
+                flux=Fu_f[:, -1], final_temps=T_f, temp_history=hist,
+                n_history=2 * n_iters, dtaus=dtaus, F_up=Fu_f, F_down=Fd_f,
+                n_iterations=n_iters, converged=conv, max_dT_history=maxdT,
+                loop_temps=temps, loop_F_up=F_up, loop_F_down=F_down)
+
+        def body(it, st: _LoopState):
+            """One RC iteration: the new loop state and this iteration's
+            history rows (T after emit, T after absorb, max |dT|), zero for
+            columns already converged.  Pure: nothing is written in place,
+            so a checkpoint can replay it, and its replays are spanned too."""
+            with telemetry.span("frei.solver.iteration"):
+                temps, F_up, F_down, cs, conv, n_iters, done = st
+                if engine == "iteration":
+                    # one kernel per RC step, the flux freeze inside it
+                    T1, Fu2, Fd2, T2, dT2 = rc_iteration_kernel(
+                        temps, F_up, F_down, done, pack, scal)
+                    telemetry.check_finite(f"RC step of iteration {it}", T1,
+                                           Fu2, Fd2, T2)
+                else:
+                    # the "cuda" kernels apply the freeze to the slabs
+                    # themselves
+                    Fu1, Fd1, T1, _ = emit(temps, F_up, F_down, done)
+                    telemetry.check_finite(f"emit sweep of iteration {it}",
+                                           Fu1, Fd1, T1)
+                    Fu2, Fd2, T2, dT2 = absorb(T1, Fu1, Fd1, done)
+                    telemetry.check_finite(
+                        f"absorb sweep of iteration {it}", Fu2, Fd2, T2)
+                    if engine == "eager":
+                        Fu2 = torch.where(col(done, Fu2), F_up, Fu2)
+                        Fd2 = torch.where(col(done, Fd2), F_down, Fd2)
+                cs1 = _push_history(T1, cs)
+                cs2 = _push_history(T2, cs1)
+                conv_layers = ((cs2.flips > cfg.n_zero_crossings)
+                               | (torch.abs(dT2) < cfg.convergence_dT))
+                new_done = conv_layers.all(dim=-1)  # (B,)
+
+                keep = done[:, None]
+                rows = (T1.masked_fill(keep, 0.0), T2.masked_fill(keep, 0.0),
+                        torch.abs(dT2).amax(dim=-1).masked_fill(done, 0.0))
+                if cfg.progress:
+                    telemetry.progress_printer(it, torch.abs(dT2).max(),
+                                               conv_layers.all(0).sum(), L)
+                st = _LoopState(
+                    temps=torch.where(keep, temps, T2), F_up=Fu2, F_down=Fd2,
+                    cs=_ConvState(*(torch.where(col(done, new), old, new)
+                                    for new, old in zip(cs2, cs))),
+                    conv=torch.where(keep, conv, conv_layers),
+                    n_iters=torch.where(done, n_iters, it + 1).to(torch.int32),
+                    done=done | new_done)
+                return st, rows
+
+        st = _LoopState(
+            temps=temps, F_up=F_up, F_down=F_down,
+            cs=_ConvState(
+                prev_T=temps,
+                prev_sign=torch.zeros((B, L), dtype=dtype, device=device),
+                flips=torch.zeros((B, L), dtype=torch.int32, device=device),
+                n_cols=torch.zeros((B,), dtype=torch.int32, device=device)),
+            conv=torch.zeros((B, L), dtype=torch.bool, device=device),
+            n_iters=torch.zeros((B,), dtype=torch.int32, device=device),
+            done=torch.zeros((B,), dtype=torch.bool, device=device))
+        T = cfg.n_timesteps
+        rows = []
         if cfg.differentiable:
-            # a checkpoint per sweep, the opacity lookup included: the
-            # backward of one sweep holds its ~10 (B, L, W)
-            # intermediates, never both sweeps' sets at once
-            # (`frei_tpu/rt/solver.py:544-553`)
-            emit, absorb = _remat(emit), _remat(absorb)
+            # exactly T iterations, no early exit (converged columns run on
+            # frozen), in checkpointed chunks of checkpointed iterations
+            # (`frei_tpu/rt/solver.py:688-728`)
+            chunk = min(cfg.remat_chunk or max(1, round(T ** 0.5)), T)
 
-    def col(done, x):
-        return done.reshape(done.shape + (1,) * (x.ndim - 1))
+            def run_chunk(first, n, st):
+                out = []
+                for it in range(first, first + n):
+                    st, r = _remat(body)(it, st)
+                    out.append(r)
+                return st, out
 
-    if init_fluxes is None:
-        F_up = torch.zeros((B, L, W), dtype=dtype, device=device)
-        F_down = torch.zeros((B, L, W), dtype=dtype, device=device)
-    else:
-        F_up = torch.as_tensor(init_fluxes[0], dtype=dtype,
-                               device=device).contiguous()
-        F_down = torch.as_tensor(init_fluxes[1], dtype=dtype,
-                                 device=device).contiguous()
-    temps = init_temps.contiguous()
-    if engine == "loop":
-        # the whole fixed-horizon loop in one kernel launch
-        (temps, F_up, F_down, hist, maxdT, n_iters,
-         conv) = rc_loop_kernel(temps, F_up, F_down, pack, scal,
-                                cfg.n_timesteps, cfg.n_zero_crossings,
-                                cfg.convergence_dT)
-        telemetry.check_finite("loop kernel's outputs", temps, F_up, F_down)
-        Fu_f, Fd_f, T_f, _, dtaus = emit(temps, F_up, F_down,
+            for first in range(0, T, chunk):
+                st, out = _remat(run_chunk)(first, min(chunk, T - first), st)
+                rows += out
+        else:
+            for it in range(T):
+                if it and not _some_running(st.done, group):
+                    break
+                st, r = body(it, st)
+                rows.append(r)
+        # the rows of iterations not run stay zero
+        zero = init_temps.new_zeros((B, L))
+        pad = T - len(rows)
+        hist = (torch.stack([x for r in rows for x in r[:2]]
+                            + [zero] * (2 * pad), dim=1)
+                if T else init_temps.new_zeros((B, 0, L)))
+        maxdT = (torch.stack([r[2] for r in rows] + [zero[:, 0]] * pad, dim=1)
+                 if T else init_temps.new_zeros((B, 0)))
+
+        # final emit for the output spectrum (`core.py:323-333`), which also
+        # returns the dtaus diagnostic (on the "cuda" engine the kernel writes
+        # it, so the opacity slab is never materialized)
+        Fu_f, Fd_f, T_f, _, dtaus = emit(st.temps, st.F_up, st.F_down,
                                          with_dtaus=True)
         telemetry.check_finite("final emit sweep", Fu_f, Fd_f, T_f)
         return RTResult(
             flux=Fu_f[:, -1], final_temps=T_f, temp_history=hist,
-            n_history=2 * n_iters, dtaus=dtaus, F_up=Fu_f, F_down=Fd_f,
-            n_iterations=n_iters, converged=conv, max_dT_history=maxdT,
-            loop_temps=temps, loop_F_up=F_up, loop_F_down=F_down)
-
-    def body(it, st: _LoopState):
-        """One RC iteration: the new loop state and this iteration's
-        history rows (T after emit, T after absorb, max |dT|), zero for
-        columns already converged.  Pure: nothing is written in place,
-        so a checkpoint can replay it."""
-        temps, F_up, F_down, cs, conv, n_iters, done = st
-        if engine == "iteration":
-            # one kernel per RC step, the flux freeze inside it
-            T1, Fu2, Fd2, T2, dT2 = rc_iteration_kernel(
-                temps, F_up, F_down, done, pack, scal)
-            telemetry.check_finite(f"RC step of iteration {it}", T1, Fu2,
-                                   Fd2, T2)
-        else:
-            # the "cuda" kernels apply the freeze to the slabs themselves
-            Fu1, Fd1, T1, _ = emit(temps, F_up, F_down, done)
-            telemetry.check_finite(f"emit sweep of iteration {it}", Fu1,
-                                   Fd1, T1)
-            Fu2, Fd2, T2, dT2 = absorb(T1, Fu1, Fd1, done)
-            telemetry.check_finite(f"absorb sweep of iteration {it}", Fu2,
-                                   Fd2, T2)
-            if engine == "eager":
-                Fu2 = torch.where(col(done, Fu2), F_up, Fu2)
-                Fd2 = torch.where(col(done, Fd2), F_down, Fd2)
-        cs1 = _push_history(T1, cs)
-        cs2 = _push_history(T2, cs1)
-        conv_layers = ((cs2.flips > cfg.n_zero_crossings)
-                       | (torch.abs(dT2) < cfg.convergence_dT))  # (B, L)
-        new_done = conv_layers.all(dim=-1)                       # (B,)
-
-        keep = done[:, None]
-        rows = (T1.masked_fill(keep, 0.0), T2.masked_fill(keep, 0.0),
-                torch.abs(dT2).amax(dim=-1).masked_fill(done, 0.0))
-        if cfg.progress:
-            telemetry.progress_printer(it, torch.abs(dT2).max(),
-                                       conv_layers.all(0).sum(), L)
-        st = _LoopState(
-            temps=torch.where(keep, temps, T2), F_up=Fu2, F_down=Fd2,
-            cs=_ConvState(*(torch.where(col(done, new), old, new)
-                            for new, old in zip(cs2, cs))),
-            conv=torch.where(keep, conv, conv_layers),
-            n_iters=torch.where(done, n_iters, it + 1).to(torch.int32),
-            done=done | new_done)
-        return st, rows
-
-    st = _LoopState(
-        temps=temps, F_up=F_up, F_down=F_down,
-        cs=_ConvState(
-            prev_T=temps,
-            prev_sign=torch.zeros((B, L), dtype=dtype, device=device),
-            flips=torch.zeros((B, L), dtype=torch.int32, device=device),
-            n_cols=torch.zeros((B,), dtype=torch.int32, device=device)),
-        conv=torch.zeros((B, L), dtype=torch.bool, device=device),
-        n_iters=torch.zeros((B,), dtype=torch.int32, device=device),
-        done=torch.zeros((B,), dtype=torch.bool, device=device))
-    T = cfg.n_timesteps
-    rows = []
-    if cfg.differentiable:
-        # exactly T iterations, no early exit (converged columns run on
-        # frozen), in checkpointed chunks of checkpointed iterations
-        # (`frei_tpu/rt/solver.py:688-728`)
-        chunk = min(cfg.remat_chunk or max(1, round(T ** 0.5)), T)
-
-        def run_chunk(first, n, st):
-            out = []
-            for it in range(first, first + n):
-                st, r = _remat(body)(it, st)
-                out.append(r)
-            return st, out
-
-        for first in range(0, T, chunk):
-            st, out = _remat(run_chunk)(first, min(chunk, T - first), st)
-            rows += out
-    else:
-        for it in range(T):
-            if it and not _some_running(st.done, group):
-                break
-            st, r = body(it, st)
-            rows.append(r)
-    # the rows of iterations not run stay zero
-    zero = init_temps.new_zeros((B, L))
-    pad = T - len(rows)
-    hist = (torch.stack([x for r in rows for x in r[:2]]
-                        + [zero] * (2 * pad), dim=1)
-            if T else init_temps.new_zeros((B, 0, L)))
-    maxdT = (torch.stack([r[2] for r in rows] + [zero[:, 0]] * pad, dim=1)
-             if T else init_temps.new_zeros((B, 0)))
-
-    # final emit for the output spectrum (`core.py:323-333`), which also
-    # returns the dtaus diagnostic (on the "cuda" engine the kernel writes
-    # it, so the opacity slab is never materialized)
-    Fu_f, Fd_f, T_f, _, dtaus = emit(st.temps, st.F_up, st.F_down,
-                                     with_dtaus=True)
-    telemetry.check_finite("final emit sweep", Fu_f, Fd_f, T_f)
-    return RTResult(
-        flux=Fu_f[:, -1], final_temps=T_f, temp_history=hist,
-        n_history=st.cs.n_cols, dtaus=dtaus, F_up=Fu_f, F_down=Fd_f,
-        n_iterations=st.n_iters, converged=st.conv, max_dT_history=maxdT,
-        loop_temps=st.temps, loop_F_up=st.F_up, loop_F_down=st.F_down)
+            n_history=st.cs.n_cols, dtaus=dtaus, F_up=Fu_f, F_down=Fd_f,
+            n_iterations=st.n_iters, converged=st.conv, max_dT_history=maxdT,
+            loop_temps=st.temps, loop_F_up=st.F_up, loop_F_down=st.F_down)
 
 
 def _remat(fn):
@@ -534,9 +539,17 @@ def _remat(fn):
     keeps only its inputs, and the backward replays it.  The
     non-reentrant form also carries gradients to tensors that ``fn``
     reaches through closures (``params``, ``F_toa``), which the
-    reentrant form drops."""
+    reentrant form drops.  A replay is spanned ``frei.remat.recompute``;
+    nested checkpoints nest their replays."""
+    def replay(*args, **kwargs):
+        # -1 in the forward; the graph task's id while a backward runs
+        if torch._C._current_graph_task_id() == -1:
+            return fn(*args, **kwargs)
+        with telemetry.span("frei.remat.recompute"):
+            return fn(*args, **kwargs)
+
     def run(*args, **kwargs):
-        return checkpoint(fn, *args, use_reentrant=False,
+        return checkpoint(replay, *args, use_reentrant=False,
                           preserve_rng_state=False, **kwargs)
     return run
 

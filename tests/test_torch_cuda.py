@@ -965,3 +965,39 @@ def test_checkpoint_resume_on_the_card(engine, tmp_path):
                                init_fluxes=fluxes)
     for f in ("flux", "final_temps", "F_up", "F_down"):
         assert torch.equal(getattr(full, f), getattr(resumed, f)), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["cuda", "iteration", "loop"])
+def test_kernel_launches_are_spanned(engine):
+    """Under the profiler every launch of the solver's kernels on the
+    card is one ``frei.kernel.*`` span on the host, as many as the
+    wrappers' ``.launches`` counted, each inside the one ``frei.solve``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from frei_tpu_torch.ops import iteration_cuda as It
+    from frei_tpu_torch.rt.solver import SolverConfig, solve_rc_batched
+    _need_card()
+    grid, T, _ = _diff_setup(torch.device("cuda"))
+    args = (grid._consts, grid.planet.physics_params(), grid._kappa_fn)
+    wrappers = {"emit": S.emit_kernel, "absorb": S.absorb_kernel,
+                "iteration": It.rc_iteration_kernel,
+                "loop": It.rc_loop_kernel}
+    before = {k: f.launches for k, f in wrappers.items()}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        solve_rc_batched(T, *args, SolverConfig(
+            3, n_zero_crossings=10 ** 6, convergence_dT=0.0, engine=engine))
+        torch.cuda.synchronize()
+    host = [e for e in prof.events() if e.device_type == DeviceType.CPU
+            and e.name.startswith("frei.")]
+    (solve,) = [e.time_range for e in host if e.name == "frei.solve"]
+    launched = 0
+    for k, f in wrappers.items():
+        spans = [e.time_range for e in host if e.name == f"frei.kernel.{k}"]
+        assert len(spans) == f.launches - before[k], k
+        assert all(solve.start <= s.start and s.end <= solve.end
+                   for s in spans), k
+        launched += len(spans)
+    assert launched == {"cuda": 7, "iteration": 4, "loop": 2}[engine]

@@ -9,7 +9,9 @@ frei_tpu_torch, mirroring ``tests/test_diag.py``, against frei_tpu.
   the JAX package's, and the ``expecto`` ``ImportError``;
 * ``diag/telemetry.py``: ``SolveMetrics``, the progress line,
   ``flux_balance`` against the JAX package's on the same results,
-  ``profile_trace``, and ``enable_nan_debugging``;
+  ``profile_trace``, ``enable_nan_debugging``, and the ``frei.*`` spans
+  (recorded under the profiler where the work happens, the null context
+  without one);
 * ``io/checkpoint.py``: the npz round trip, an exact 3 + 3 resume, and
   files crossing between the packages (rtol 1e-9 against the port's
   own run where a JAX solve wrote the file: the eager and xla engines
@@ -256,6 +258,8 @@ def test_profile_trace_writes_a_trace(resume_setup, tmp_path):
     files = list((tmp_path / "trace").glob("*.json"))
     assert len(files) == 1 and files[0].stat().st_size > 0
     assert any("aten::" in e.key for e in prof.key_averages())
+    # the program's spans reach the Chrome trace
+    assert '"frei.solver.iteration"' in files[0].read_text()
 
 
 def test_nan_debugging(resume_setup):
@@ -283,3 +287,95 @@ def test_nan_debugging(resume_setup):
     finally:
         telemetry.enable_nan_debugging(False)
     assert not torch.is_anomaly_enabled()
+
+
+def _profiled_spans(fn):
+    """Run ``fn`` under ``torch.profiler`` (CPU): its result and the
+    ``frei.*`` spans recorded, as (name, start_us, end_us)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = fn()
+    spans = [(e.name, e.time_range.start, e.time_range.end)
+             for e in prof.events() if e.name.startswith("frei.")]
+    return out, spans
+
+
+def _named(spans, name):
+    return [(s, e) for n, s, e in spans if n == name]
+
+
+def test_spans_of_a_population_solve(resume_setup):
+    """A population solve of 2 columns x 3 iterations under the profiler:
+    one ``frei.population.build``, ended before the one ``frei.solve``
+    that holds the three ``frei.solver.iteration`` and the two
+    per-iteration reads between them."""
+    from frei_tpu_torch.parallel import solve_population
+    _, grid, T0, _ = resume_setup
+    planets = [Planet.from_hot_jupiter(),
+               Planet(a_rstar=6.0, m_bar=2.4, g=15.0, T_star=5500.0)]
+    _, spans = _profiled_spans(lambda: solve_population(
+        torch.tensor(T0[:2]), grid, planets, SolverConfig(**_cfg(3))))
+    (build,) = _named(spans, "frei.population.build")
+    (solve,) = _named(spans, "frei.solve")
+    its = _named(spans, "frei.solver.iteration")
+    reads = _named(spans, "frei.solver.host_read")
+    assert len(its) == 3 and len(reads) == 2, spans
+    assert build[1] <= solve[0]
+    assert all(solve[0] <= s and e <= solve[1] for s, e in its + reads)
+    # each read lies between two iterations
+    for (s, e), before, after in zip(sorted(reads), its, its[1:]):
+        assert before[1] <= s and e <= after[0]
+    assert not _named(spans, "frei.remat.recompute")
+
+
+def test_remat_spans_only_in_the_backward(resume_setup):
+    """A differentiable solve records no ``frei.remat.recompute`` in its
+    forward, and replays (and spans again) its iterations inside
+    ``torch.autograd.grad``."""
+    _, grid, T0, args = resume_setup
+    T = torch.tensor(T0, requires_grad=True)
+    cfg = SolverConfig(differentiable=True, **_cfg(4))
+    res, fwd = _profiled_spans(
+        lambda: solve_rc_batched(T, *args, cfg))
+    assert len(_named(fwd, "frei.solver.iteration")) == 4
+    assert not _named(fwd, "frei.remat.recompute")
+    _, bwd = _profiled_spans(
+        lambda: torch.autograd.grad(res.flux.sum(), T))
+    replays = _named(bwd, "frei.remat.recompute")
+    assert replays, bwd
+    # the chunks' replays hold the iterations' replays
+    assert _named(bwd, "frei.solver.iteration")
+    assert not _named(bwd, "frei.solve")
+
+
+@pytest.mark.parametrize("path", ["auto", "eager", "iteration", "loop",
+                                  "population", "differentiable"])
+def test_spans_off_enter_no_record_function(resume_setup, monkeypatch,
+                                            path):
+    """With no profiler active a span is the shared null context: with
+    ``record_function`` made to raise, a solve on every CPU engine, a
+    population solve and a differentiable backward still run."""
+    from frei_tpu_torch.parallel import solve_population
+
+    def refuse(*a, **k):
+        raise AssertionError("record_function entered with no profiler")
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
+    assert not torch.autograd._profiler_enabled()
+    assert telemetry.span("frei.solve") is telemetry.span("frei.x")
+    _, grid, T0, args = resume_setup
+    T = torch.tensor(T0)
+    if path == "population":
+        res = solve_population(T, grid, [grid.planet] * 3,
+                               SolverConfig(**_cfg(2)))
+    elif path == "differentiable":
+        T.requires_grad_(True)
+        res = solve_rc_batched(T, *args, SolverConfig(
+            differentiable=True, **_cfg(3)))
+        (grad,) = torch.autograd.grad(res.flux.sum(), T)
+        assert torch.isfinite(grad).all()
+    else:
+        res = solve_rc_batched(T, *args, SolverConfig(engine=path,
+                                                      **_cfg(2)))
+    assert torch.isfinite(res.flux).all()
+
