@@ -533,15 +533,16 @@ def population_args(grid, n):
     :func:`population_draws`, one per column: per-planet F_toa (n, W), g
     (CGS) and alpha (n,), built once as ``solve_population`` builds them,
     the grid's m_bar shared."""
-    from frei_tpu_torch.stellar.irradiation import f_toa_np
+    from frei_tpu_torch.stellar.irradiation import f_toa_rows
     a_rstar, g_si, t_star, alpha = population_draws(n)
-    lam = np.asarray(grid.rt_grid.lam_cm)
     consts, params, kappa_fn = solver_args(grid)
 
     def dev(x):
         return torch.as_tensor(x, dtype=grid.dtype, device=grid.device)
-    f_toa = dev(np.stack([f_toa_np(lam, t, a)
-                          for t, a in zip(t_star, a_rstar)]))
+    f_toa = f_toa_rows(grid.rt_grid.lam_cm,
+                       torch.as_tensor(t_star, device=grid.device),
+                       torch.as_tensor(a_rstar, device=grid.device),
+                       grid.dtype)
     return (consts._replace(F_toa=f_toa),
             params._replace(g=dev(g_si * 100.0), alpha=dev(alpha)), kappa_fn)
 

@@ -28,7 +28,7 @@ from .opacity.tables import OpacityStack, make_opacity_stack
 from .rt.physics import PhysicsParams
 from .rt.solver import (RTConstants, RTResult, SolverConfig, solve_rc,
                         solve_rc_batched)
-from .stellar.irradiation import f_toa_np
+from .stellar.irradiation import f_toa_rows
 
 # np.trapz was renamed np.trapezoid in NumPy 2.0; support both
 _trapezoid = getattr(np, "trapezoid", None) or np.trapz
@@ -266,14 +266,19 @@ class Grid:
                                            mode=modes[self.chemistry],
                                            build_device=self.device)
         g = self.rt_grid
+        # the shared planet is a population of one: its row is the
+        # population builder's, so a population column equals its planet's
+        # shared solve bit for bit on the device
+        T_star = torch.tensor([self.planet.T_star], dtype=torch.float64,
+                              device=self.device)
         self._consts = RTConstants(
             lam_cm=self._tensor(g.lam_cm),
             trapz_w=self._tensor(g.trapz_w_cm),
             pressures=self._tensor(g.pressures_cgs),
             sigma_scat=self._tensor(rayleigh_total(g.lam_cm,
                                                    self.planet.m_bar)),
-            F_toa=self._tensor(f_toa_np(g.lam_cm, self.planet.T_star,
-                                        self.planet.a_rstar)),
+            F_toa=f_toa_rows(g.lam_cm, T_star, [self.planet.a_rstar],
+                             self.dtype)[0],
         )
         self._kappa_fn = build_kappa_model(
             stack, self.chemistry, self._consts.pressures,

@@ -20,7 +20,6 @@ from __future__ import annotations
 from datetime import timedelta
 from typing import Optional
 
-import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -29,7 +28,7 @@ from ..opacity.hotpath import build_kappa_model
 from ..opacity.tables import OpacityStack
 from ..rt.physics import PhysicsParams
 from ..rt.solver import RTConstants, RTResult, SolverConfig, solve_rc_batched
-from ..stellar.irradiation import f_toa_np
+from ..stellar.irradiation import f_toa_rows
 from .mesh import BINS, COLUMNS, make_mesh
 
 __all__ = ["initialize_distributed", "shard_solver_inputs", "solve_ensemble",
@@ -223,28 +222,26 @@ def solve_population(init_temps, grid, planets,
 
     Returns a batched :class:`RTResult`: ``solve_rc_batched`` in
     population mode, per-planet F_toa (C, W), g and alpha (C,) on the
-    grid's device.  On the ``"cuda"`` engine each column equals a
-    shared-planet solve of its planet bit for bit.  ``mesh`` (a
-    columns-only ``DeviceMesh``) shards the planets over the ranks:
-    each solves its columns, and the fields are DTensors sharded on
-    columns.
+    grid's device.  The F_toa rows come from one batched
+    ``stellar.irradiation.f_toa_rows`` evaluation on that device (in
+    float64, cast to the grid's dtype), the builder of a ``Grid``'s own
+    row, so on the ``"cuda"`` engine each column equals a shared-planet
+    solve of its planet bit for bit.  ``mesh`` (a columns-only
+    ``DeviceMesh``) shards the planets over the ranks: each builds the
+    rows of its columns only and solves them, and the fields are
+    DTensors sharded on columns.
     """
     with telemetry.span("frei.population.build"):
+        cols = torch.tensor([(p.T_star, p.a_rstar, p.g, p.alpha, p.m_bar)
+                             for p in planets], dtype=torch.float64)
         m_bar = planets[0].m_bar
-        if any(abs(p.m_bar - m_bar) > 1e-30 for p in planets):
+        if bool(((cols[:, 4] - m_bar).abs() > 1e-30).any()):
             raise ValueError(
                 "solve_population shares composition: all planets must "
                 "have the same m_bar (it sets chemistry + Rayleigh); "
                 "build separate grids for different compositions")
         consts = grid._consts
         dtype, device = consts.lam_cm.dtype, consts.lam_cm.device
-        lam_cm = np.asarray(grid.rt_grid.lam_cm)
-        f_toa = torch.as_tensor(
-            np.stack([f_toa_np(lam_cm, p.T_star, p.a_rstar) for p in planets]),
-            dtype=dtype, device=device)                       # (C, W)
-        g = torch.as_tensor([p.g for p in planets], dtype=dtype, device=device)
-        alpha = torch.as_tensor([p.alpha for p in planets], dtype=dtype,
-                                device=device)
         if mesh is None:
             T0 = torch.as_tensor(init_temps, dtype=dtype, device=device)
         else:
@@ -255,11 +252,15 @@ def solve_population(init_temps, grid, planets,
                     "(n_columns, 1) mesh (per-planet F_toa rows are column "
                     "state, not spectral constants)")
             T0 = _local_columns(init_temps, mesh, dtype, device)
-            sl = _cut(len(planets), n_columns, c, "the columns axis")
-            f_toa, g, alpha = f_toa[sl], g[sl], alpha[sl]
-        params = PhysicsParams(g=g, m_bar=torch.as_tensor(m_bar, dtype=dtype,
-                                                          device=device),
-                               alpha=alpha, n_dof=5)
+            cols = cols[_cut(len(planets), n_columns, c, "the columns axis")]
+        # this rank's four (C,) vectors in one upload; its rows on the device
+        T_star, a_rstar, g, alpha = cols[:, :4].T.contiguous().to(device)
+        f_toa = f_toa_rows(grid.rt_grid.lam_cm, T_star, a_rstar,
+                           dtype)                             # (C, W)
+        params = PhysicsParams(g=g.to(dtype),
+                               m_bar=torch.as_tensor(m_bar, dtype=dtype,
+                                                     device=device),
+                               alpha=alpha.to(dtype), n_dof=5)
     res = solve_rc_batched(T0, consts._replace(F_toa=f_toa), params,
                            grid._kappa_fn, cfg)
     return res if mesh is None else _as_dtensors(res, mesh)

@@ -6,7 +6,8 @@ whole-loop kernels (``csrc/iteration.cu``), the grouped trapezoid rebin
 then ``chip_smoke.py`` phase 4f's checks on the card: the differentiable
 solve (forward bit for bit the eager solve, gradients against the CPU's
 at rtol 1e-8), the associative scan, the standalone drivers and
-checkpoint resume on ``"cuda"`` and ``"eager"``.
+checkpoint resume on ``"cuda"`` and ``"eager"``; and a population solve
+on ``"cuda"`` bit for bit its planets' own ``Grid`` solves.
 
 Needs an NVIDIA GPU and nvcc; skipped without a GPU.  Imports no JAX,
 so it runs where the JAX package is not installed:
@@ -1001,3 +1002,37 @@ def test_kernel_launches_are_spanned(engine):
                    for s in spans), k
         launched += len(spans)
     assert launched == {"cuda": 7, "iteration": 4, "loop": 2}[engine]
+
+
+@pytest.mark.cuda
+def test_population_columns_are_their_planets_grid_solves():
+    """``solve_population`` of four planets on ``"cuda"``, float64, three
+    iterations, its sweeps on the kernels: each column bit for bit its
+    planet's own ``Grid`` solve (both F_toa rows come from the device
+    builder ``stellar.irradiation.f_toa_rows``)."""
+    from frei_tpu_torch.parallel import solve_population
+    from frei_tpu_torch.rt.solver import SolverConfig, solve_rc_batched
+    _need_card()
+    dev = torch.device("cuda")
+    grid = _grid(torch.float64, dev)
+    planets = [Planet(*p) for p in ((5.0, 2.4, 24.79, 5800.0, 1.0),
+                                    (9.0, 2.4, 10.0, 4500.0, 1.5),
+                                    (6.4, 2.4, 50.0, 6300.0, 1.0),
+                                    (4.0, 2.4, 15.0, 5000.0, 0.8))]
+    rng = np.random.RandomState(11)
+    T0 = torch.as_tensor(np.asarray(grid.init_temperatures)[None, :]
+                         * rng.uniform(0.9, 1.1, (len(planets), 1)),
+                         dtype=torch.float64, device=dev)
+    cfg = SolverConfig(3, engine="cuda")
+    launched = S.emit_kernel.launches
+    res = solve_population(T0, grid, planets, cfg)
+    assert S.emit_kernel.launches > launched
+    for c, p in enumerate(planets):
+        own = Grid(p, n_wl_bins=W, n_layers=L, T_ref=2400.0,
+                   dtype=torch.float64, device=dev)
+        own.load_opacities(opacities=grid.opacities)
+        one = solve_rc_batched(T0[c:c + 1], own._consts, p.physics_params(),
+                               own._kappa_fn, cfg)
+        for f in ("flux", "final_temps", "F_up", "F_down", "dtaus",
+                  "temp_history", "n_iterations"):
+            assert torch.equal(getattr(res, f)[c], getattr(one, f)[0]), (c, f)

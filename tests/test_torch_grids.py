@@ -94,3 +94,75 @@ def test_irradiation_rayleigh_planck():
     np.testing.assert_allclose(
         ti.f_toa(torch.tensor(lam), 5800.0, 6.45).numpy(),
         ji.f_toa_np(lam, 5800.0, 6.45), rtol=1e-13)
+
+
+#: (T_star [K], a/R*) of the population of tests/test_parallel.py
+STARS = [(5800.0, 5.0), (4500.0, 9.0), (6300.0, 6.4), (5000.0, 4.0)]
+#: bins of the row-against-batch checks: a multiple of 16, so that
+#: ATen's CPU loop evaluates every expm1 of a row, alone or in a batch,
+#: in its vector body (its scalar tail rounds expm1 apart)
+VECTOR_BINS = 496
+
+
+def _stars():
+    T, a = (torch.tensor(x, dtype=torch.float64) for x in zip(*STARS))
+    return jg.make_rt_grid().lam_cm, T, a
+
+
+def test_f_toa_rows_are_per_planet_rows_bit_for_bit():
+    """The batched builder's row c is ``f_toa`` of planet c on the same
+    device, and the builder's row at C = 1, bit for bit; it counts the
+    rows it builds."""
+    lam, T, a = _stars()
+    lam = lam[:VECTOR_BINS]
+    before = ti.f_toa_rows.rows
+    rows = ti.f_toa_rows(lam, T, a, torch.float64)
+    assert ti.f_toa_rows.rows - before == len(STARS)
+    assert rows.dtype == torch.float64 and rows.shape == (len(STARS),
+                                                          lam.size)
+    lam_t = torch.tensor(lam)
+    for c in range(len(STARS)):
+        assert torch.equal(rows[c], ti.f_toa(lam_t, T[c], a[c])), c
+        assert torch.equal(rows[c], ti.f_toa_rows(
+            lam, T[c:c + 1], a[c:c + 1], torch.float64)[0]), c
+
+
+def test_f_toa_rows_against_the_host_twin():
+    """Against ``f_toa_np`` row by row at rtol 2e-15: ATen's expm1 and
+    its scalar divisions (a reciprocal and a product) round apart from
+    numpy's by a few ulp, which expm1 carries up by its exponent, to
+    1.27e-15 (9 ulp) for these stars over 0.5-10 um on an AVX512 host
+    and 1.67e-15 on an H100."""
+    lam, T, a = _stars()
+    want = np.stack([ti.f_toa_np(lam, t, r) for t, r in STARS])
+    np.testing.assert_allclose(ti.f_toa_rows(lam, T, a, torch.float64)
+                               .numpy(), want, rtol=2e-15, atol=0)
+
+
+def test_f_toa_rows_cast_after_a_float64_evaluation():
+    """A float32 grid's rows are the float64 rows cast, bit for bit, not
+    a float32 evaluation of the same expression."""
+    lam, T, a = _stars()
+    rows = ti.f_toa_rows(lam, T, a, torch.float32)
+    assert rows.dtype == torch.float32
+    assert torch.equal(rows, ti.f_toa_rows(lam, T, a, torch.float64)
+                       .to(torch.float32))
+    in_f32 = ti.f_toa(torch.tensor(lam, dtype=torch.float32),
+                      T.float()[:, None], a.float()[:, None])
+    assert not torch.equal(rows, in_f32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_grid_f_toa_is_the_builders_row(dtype):
+    """``Grid``'s shared planet is a population of one: its F_toa is the
+    builder's row for the planet, in the grid's dtype, bit for bit."""
+    from frei_tpu_torch import Grid, Planet, load_example_opacity
+    p = Planet(a_rstar=6.0, m_bar=2.4, g=15.0, T_star=5500.0)
+    grid = Grid(p, n_wl_bins=24, n_layers=7, T_ref=2400.0, dtype=dtype,
+                device="cpu")
+    grid.load_opacities(opacities=load_example_opacity(
+        grid, scale_factor=1.0, dtype=dtype))
+    F_toa = grid._consts.F_toa
+    assert F_toa.dtype == dtype and F_toa.shape == (24,)
+    assert torch.equal(F_toa, ti.f_toa_rows(
+        grid.rt_grid.lam_cm, [p.T_star], [p.a_rstar], dtype)[0])

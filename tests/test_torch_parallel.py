@@ -52,6 +52,7 @@ from frei_tpu_torch.parallel.launch import run_ranks  # noqa: E402
 from frei_tpu_torch.rt.physics import PhysicsParams  # noqa: E402
 from frei_tpu_torch.rt.solver import (RTResult, SolverConfig,  # noqa: E402
                                       solve_rc_batched)
+from frei_tpu_torch.stellar.irradiation import f_toa_rows  # noqa: E402
 
 torch.set_num_threads(2)
 REPO = Path(__file__).resolve().parent.parent
@@ -183,10 +184,18 @@ def setup():
         tg, scale_factor=1.0, dtype=torch.float64))
     want = convert.to_opacity_stack(jg.opacities)
     assert torch.equal(tg.opacities.values, want.values)
-    for f in ("lam_cm", "trapz_w", "pressures", "sigma_scat", "F_toa"):
+    for f in ("lam_cm", "trapz_w", "pressures", "sigma_scat"):
         np.testing.assert_array_equal(getattr(tg._consts, f).numpy(),
                                       np.asarray(getattr(jg._consts, f)),
                                       err_msg=f)
+    # F_toa is the device builder's row (the ranks build the same bits);
+    # the JAX grid's is numpy's, whose expm1 and divisions round apart
+    p = tg.planet
+    assert torch.equal(tg._consts.F_toa, f_toa_rows(
+        tg.rt_grid.lam_cm, [p.T_star], [p.a_rstar], torch.float64)[0])
+    np.testing.assert_allclose(tg._consts.F_toa.numpy(),
+                               np.asarray(jg._consts.F_toa), rtol=2e-15,
+                               atol=0)
     rng = np.random.RandomState(11)
     T0 = np.asarray(jg.init_temperatures)[None, :] * rng.uniform(
         0.9, 1.1, (C, 1))

@@ -18,8 +18,10 @@ planet per column, with per-column g, alpha, m_bar and F_toa.
   ``solve_population`` (rtol 1e-9);
 * the guards: wrong lengths raise on every engine, size-1 values
   broadcast, the whole-iteration engines and mixed compositions refuse;
-* the mesh path in a world of two gloo ranks: a columns mesh solves, a
-  bins mesh is refused.
+* the batched F_toa build: one ``f_toa_rows`` row a planet, each its
+  planet's ``Grid`` row bit for bit;
+* the mesh path in a world of two gloo ranks: a columns mesh solves,
+  each rank building its own planets' rows, a bins mesh is refused.
 """
 
 import os
@@ -264,6 +266,46 @@ def test_solve_population_matches_per_planet_and_jax(setup):
                                        rtol=1e-9, err_msg=f"{c} {f}")
 
 
+def test_solve_population_builds_each_planets_row_once(setup,
+                                                       monkeypatch):
+    """``solve_population`` builds its F_toa rows in one batched call of
+    ``f_toa_rows`` (its counter up by C) and hands the solver each
+    planet's own ``Grid`` row, g and alpha, bit for bit.  On 32 bins: a
+    multiple of 16, so that ATen's CPU loop evaluates every expm1 of a
+    row, alone or in the batch, in its vector body (its scalar tail
+    rounds expm1 apart)."""
+    import frei_tpu_torch.parallel.solve as psolve
+    from frei_tpu_torch import load_example_opacity
+    from frei_tpu_torch.stellar.irradiation import f_toa_rows
+    _, _, T_np = setup
+    n_bins = 32
+
+    def grid(planet):
+        g = Grid(planet, n_wl_bins=n_bins, n_layers=L, T_ref=2400.0,
+                 dtype=torch.float64, device="cpu")
+        g.load_opacities(opacities=load_example_opacity(
+            g, scale_factor=1.0, dtype=torch.float64))
+        return g
+    seen = {}
+    inner = psolve.solve_rc_batched
+
+    def spy(T0, consts, params, *args, **kw):
+        seen.update(F_toa=consts.F_toa, params=params)
+        return inner(T0, consts, params, *args, **kw)
+    monkeypatch.setattr(psolve, "solve_rc_batched", spy)
+    planets = _torch_planets(B)
+    pop = grid(Planet.from_hot_jupiter())
+    before = f_toa_rows.rows
+    solve_population(torch.tensor(T_np), pop, planets,
+                     SolverConfig(n_timesteps=1, engine="eager"))
+    assert f_toa_rows.rows - before == B
+    assert seen["F_toa"].shape == (B, n_bins)
+    for c, p in enumerate(planets):
+        assert torch.equal(seen["F_toa"][c], grid(p)._consts.F_toa), c
+        assert float(seen["params"].g[c]) == p.g
+        assert float(seen["params"].alpha[c]) == p.alpha
+
+
 @pytest.mark.parametrize("field", ["params.g", "params.alpha",
                                    "params.m_bar", "F_toa"])
 @pytest.mark.parametrize("engine", ["eager", "iteration", "loop"])
@@ -332,6 +374,7 @@ import torch.distributed as dist
 from frei_tpu_torch import Grid, Planet, load_example_opacity
 from frei_tpu_torch.parallel import (initialize_distributed, make_mesh,
                                      solve_population)
+from frei_tpu_torch.stellar.irradiation import f_toa_rows
 
 out = sys.argv[1]
 initialize_distributed(
@@ -344,10 +387,14 @@ grid = Grid(Planet.from_hot_jupiter(), n_wl_bins=24, n_layers=7,
 grid.load_opacities(opacities=load_example_opacity(
     grid, scale_factor=1.0, dtype=torch.float64))
 planets = [Planet(*p) for p in inp["planets"]]
+before = f_toa_rows.rows
 res = solve_population(torch.tensor(inp["T"]), grid, planets,
                        mesh=make_mesh(2, 1, device_type="cpu"))
+built = [None] * dist.get_world_size()
+dist.all_gather_object(built, f_toa_rows.rows - before)
 saved = {f: getattr(res, f).full_tensor().numpy()
          for f in ("flux", "final_temps")}
+saved["rows_built"] = np.array(built)
 try:
     solve_population(torch.tensor(inp["T"]), grid, planets,
                      mesh=make_mesh(1, 2, device_type="cpu"))
@@ -364,8 +411,9 @@ def test_population_refuses_mixed_composition_and_mesh(setup, tmp_path):
     339-348`).  On a device mesh the planets shard over the columns: a
     (2, 1) mesh of two gloo ranks solves two planets as the one-process
     solve does (rtol 1e-10: a rank's batch of one sums in another order
-    than a batch of two), and a (1, 2) mesh is refused with "columns"
-    (`tests/test_parallel.py:297-321`)."""
+    than a batch of two), each rank building the F_toa rows of its own
+    planets only (C / 2 = 1), and a (1, 2) mesh is refused with
+    "columns" (`tests/test_parallel.py:297-321`)."""
     _, tg, T_np = setup
     planets = [Planet(5.0, 2.4, 24.79, 5800.0), Planet(5.0, 2.8, 24.79,
                                                        5800.0)]
@@ -382,4 +430,5 @@ def test_population_refuses_mixed_composition_and_mesh(setup, tmp_path):
     for f in ("flux", "final_temps"):
         np.testing.assert_allclose(got[f], getattr(ref, f).numpy(),
                                    rtol=1e-10, err_msg=f)
+    assert got["rows_built"].tolist() == [1, 1]
     assert "columns" in str(got["error"])
