@@ -5,7 +5,13 @@
 cell, a configuration or a metric needs is a file found by its name:
 
 - ``configs/<config>.json``: the deployment (grid, planet or planet
-  draws, opacity, chemistry, dtype, ``reduced``, ``assumed``);
+  draws, opacity, chemistry, dtype, ``reduced``, ``assumed``).  The
+  opacity block is of one of two kinds: ``"example"`` (``species``,
+  ``seed``, ``scale_factor``: frei's one-species fixture, the same at
+  every temperature and pressure) or ``"seeded_tp"`` (a list of
+  ``species``, ``seed``, and log-spaced ``temps_K`` and ``press_bar``
+  axes as ``{"min", "max", "n"}``: seeded T- and P-dependent tables,
+  ``reference/inputs.seeded_tp_opacity``);
 - ``traffic/<traffic>.json``: ``entry`` (a file of ``entries/``),
   ``engine``, ``columns``, ``iterations``, ``profile_scale`` (the
   initial profiles are T(P) times U(lo, hi) a column), ``pool`` (input
@@ -19,5 +25,8 @@ cell, a configuration or a metric needs is a file found by its name:
 - ``metrics/<metric>.py``: ``read(run)``, a number or None;
 - ``reference/``: the plain reference, the frozen inputs and counts;
 - ``tools/calibrate.py``: the readings a cell's limits are set from;
-- ``tools/faults.py``: the faults a broken timed path is tested with.
+- ``tools/faults.py``: the faults a broken timed path is tested with;
+- ``tools/seeded_tp.py``: the four-species deployment on the card
+  before a cell runs it (the program's walls, memory and loop kernel,
+  its gaps against the reference, the control's).
 """

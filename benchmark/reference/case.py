@@ -25,12 +25,19 @@ def m_bar_g(cfg: dict) -> float:
 
 def opacity_tables(cfg: dict, ga: inputs.GridArrays) -> dict:
     """``{isotopologue: (values (nT, nP, W), temps_K, press_bar)}``, the
-    raw tables both sides are given."""
+    raw tables both sides are given: ``"example"``, frei's one-species
+    fixture on the grid's own T(P) and pressures; ``"seeded_tp"``,
+    several species on seeded T- and P-dependent tables over the
+    configuration's log-spaced ``temps_K`` and ``press_bar`` axes."""
     op = cfg["opacity"]
-    if op["kind"] != "example":
-        raise ValueError(f"unknown opacity kind {op['kind']!r}")
-    return {op["species"]: inputs.example_opacity(ga, op["seed"],
-                                                  op["scale_factor"])}
+    if op["kind"] == "example":
+        return {op["species"]: inputs.example_opacity(ga, op["seed"],
+                                                      op["scale_factor"])}
+    if op["kind"] == "seeded_tp":
+        return inputs.seeded_tp_opacity(
+            ga, op["species"], op["seed"], inputs.log_axis(op["temps_K"]),
+            inputs.log_axis(op["press_bar"]))
+    raise ValueError(f"unknown opacity kind {op['kind']!r}")
 
 
 def build(cfg: dict, tables: dict, dtype, device, pop=None):

@@ -28,16 +28,17 @@ def traced(cell, device="cpu", **overrides):
 def slow_build_run():
     """A traced ``pop_auto_f64`` run of one iteration a call, warmed up
     by one call, whose population build outlasts the rest of the call
-    (each planet's F_toa row slowed by SLOW_ROW_S), so that the middle
-    of the window, idle on the CPU, lies in it."""
+    (the planets' F_toa rows, built in one call, slowed by SLOW_ROW_S a
+    planet), so that the middle of the window, idle on the CPU, lies in
+    it."""
     import frei_tpu_torch.parallel.solve as psolve
     mp = pytest.MonkeyPatch()
-    inner = psolve.f_toa_np
+    inner = psolve.f_toa_rows
 
-    def slow(*args):
-        time.sleep(SLOW_ROW_S)
-        return inner(*args)
-    mp.setattr(psolve, "f_toa_np", slow)
+    def slow(lam_cm, T_star, *args):
+        time.sleep(SLOW_ROW_S * len(T_star))
+        return inner(lam_cm, T_star, *args)
+    mp.setattr(psolve, "f_toa_rows", slow)
     try:
         yield traced("pop_auto_f64", iterations=1, warmup_calls=1)
     finally:
