@@ -230,9 +230,11 @@ class Grid:
         pyfastchem, `chemistry.py:143-153`), "equilibrium" for the
         FastChem-equivalent solver in table mode
         (``chemistry.fastchem.FastChemTorch``: a 64 x 32 (T, P) table
-        solved once here on the grid's device, read by interpolation;
-        42 s on an H100), "equilibrium-exact" for
-        the exact solver at every call, or any object with an
+        solved once here on the grid's device, read by interpolation in
+        the grid's precision, each row settled to float64 digits on a
+        float64 grid; 42 s on an H100 for a float32 grid),
+        "equilibrium-exact" for the exact solver at every call, or any
+        object with an
         ``mmr(temps, pressures_cgs)`` method.  None on a grid that
         already has a model keeps it (a reload must not downgrade the
         chemistry); "mock" resets it.
@@ -264,7 +266,8 @@ class Grid:
                     f"unknown chemistry model {self.chemistry!r}")
             self.chemistry = FastChemTorch(stack.species, self.planet.m_bar,
                                            mode=modes[self.chemistry],
-                                           build_device=self.device)
+                                           build_device=self.device,
+                                           dtype=self.dtype)
         g = self.rt_grid
         # the shared planet is a population of one: its row is the
         # population builder's, so a population column equals its planet's

@@ -40,6 +40,7 @@ on one thread (``build_device``).
 
 from __future__ import annotations
 
+import time
 from contextlib import contextmanager
 from pathlib import Path
 from typing import NamedTuple, Optional, Sequence
@@ -48,6 +49,7 @@ import numpy as np
 import torch
 
 from .. import constants as const
+from ..diag import telemetry
 from .names import (iso_to_mass_g, iso_to_species,
                     species_name_to_fastchem_name)
 
@@ -61,6 +63,18 @@ _DATA = Path(__file__).parent / "data" / "chem_tables.npz"
 UNKNOWN_SPECIES = -1
 
 _NEG = -1e30  # stand-in for -inf that survives arithmetic
+
+#: a float64 table's row is settled when a block of SETTLE_SWEEPS more
+#: sweeps moves no unknown of its state (the log partial pressures and
+#: ln M) by more than SETTLE_TOL; a row still moving after SETTLE_BLOCKS
+#: blocks fails the build
+SETTLE_SWEEPS, SETTLE_TOL, SETTLE_BLOCKS = 8, 1e-12, 500
+
+
+def _work_dtype(x):
+    """The precision a table lookup runs in: float64 for float64 inputs,
+    float32 for any other."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
 
 
 class ChemTable(NamedTuple):
@@ -419,14 +433,31 @@ class FastChemTorch:
         s on the card and 104.9 s on the host (PERF.md §5).  So on the
         card the build replays one sweep captured in a CUDA graph (the
         eager sweep's bits).  The table itself is kept on the host and
-        copied, once per device, to where it is read.
+        copied, once per device and precision, to where it is read.
+    dtype : the precision of the solves the table serves.  float32 (the
+        default) accepts a row once its pressure closure is within 1e-8,
+        as the JAX package's build does, so that float32 solves keep
+        their bits: such a row's ln VMR can still be off by ~7e-5 in the
+        hot rows and ~5e-3 in the coldest of the default table (PERF.md
+        §6).  float64 sweeps each row on until it is settled
+        (``SETTLE_TOL``), so that the table holds float64 digits.
+
+    The table is stored in float64; a lookup runs in float64 on float64
+    inputs and on the table's float32 view (one cast of the float64
+    table) otherwise.
+
+    Counters of a table build: ``table_residual`` (the worst final
+    pressure-closure residual), ``build_seconds`` (its wall on the host
+    clock, synchronized with the build device), ``build_sweeps``
+    (Gauss-Seidel sweeps run) and ``rows_refinished`` (rows that fell
+    back to the full-sweep continuation).
     """
 
     def __init__(self, opacity_species: Sequence[str], m_bar_g: float,
                  table: Optional[ChemTable] = None, mode: str = "table",
                  n_sweeps: int = 60, grid_shape=(64, 32),
                  T_range=(500.0, 6000.0), P_range_bar=(1e-8, 1e3),
-                 build_device="cuda"):
+                 build_device="cuda", dtype=torch.float32):
         self.table = table if table is not None else load_chem_table()
         self.m_bar_g = float(m_bar_g)
         self.mode = mode
@@ -451,11 +482,18 @@ class FastChemTorch:
                     "FastChemTorch: the table builds on the card by default "
                     "but no CUDA device is available here; pass "
                     "build_device=\"cpu\"")
-            self._build_vmr_table(grid_shape, T_range, P_range_bar, device)
+            t0 = time.perf_counter()
+            with telemetry.span("frei.chemistry.build"):
+                self._build_vmr_table(grid_shape, T_range, P_range_bar,
+                                      device, dtype == torch.float64)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            self.build_seconds = time.perf_counter() - t0
         elif mode != "exact":
             raise ValueError(f"unknown chemistry mode {mode!r}")
 
-    def _build_vmr_table(self, grid_shape, T_range, P_range_bar, device):
+    def _build_vmr_table(self, grid_shape, T_range, P_range_bar, device,
+                         settle: bool):
         nT, nP = grid_shape
         logT = np.linspace(np.log10(T_range[0]), np.log10(T_range[1]), nT)
         logP = np.linspace(np.log10(P_range_bar[0]),
@@ -464,12 +502,29 @@ class FastChemTorch:
         P_t = torch.as_tensor(P_row, dtype=torch.float64, device=device)
         ln_vmr = np.empty((nT, nP, len(self._indices)))
         worst = 0.0
+        self.build_sweeps = self.rows_refinished = 0
         static = _prepare_static(self.table)
         with _one_host_thread(device), torch.inference_mode():
             solver = dict(gs=_GaussSeidel(static, torch.float64, device, 16))
             if device.type == "cuda":
                 solver["graphed"] = _GraphedSweep(solver["gs"], nP,
                                                   torch.float64, device)
+
+            def sweeps(T_row, z, n):
+                self.build_sweeps += n
+                return _solve_batch(static, T_row, P_t, z, n, 16, **solver)
+
+            def settled(T_row, z):
+                for _ in range(SETTLE_BLOCKS):
+                    ln_p, z_next, r = sweeps(T_row, z, SETTLE_SWEEPS)
+                    moved = float((z_next - z).abs().max())
+                    if moved <= SETTLE_TOL:
+                        return ln_p, z_next, r
+                    z = z_next
+                raise RuntimeError(
+                    f"chemistry table row at T = {float(T_row[0]):.1f} K "
+                    f"still moved by {moved:.2e} after "
+                    f"{SETTLE_BLOCKS * SETTLE_SWEEPS} settling sweeps")
             # Continuation: solve the hottest row cold (the chemistry is
             # mildest there), then walk down in T warm-starting each row
             # from the previous one, ~4x fewer sweeps overall.
@@ -477,15 +532,16 @@ class FastChemTorch:
             for k in range(nT - 1, -1, -1):
                 T_row = torch.full((nP,), 10.0 ** logT[k],
                                    dtype=torch.float64, device=device)
-                ln_p, z, r = _solve_batch(
-                    static, T_row, P_t, z,
-                    self.n_sweeps if z is None else 16, 16, **solver)
+                ln_p, z, r = sweeps(T_row, z,
+                                    self.n_sweeps if z is None else 16)
                 if float(r[-1]) > 1e-8:
                     # the warm start from the neighbouring row was not
                     # close enough (coarse grids, stiff cold rows):
                     # finish the row with a full-sweep continuation
-                    ln_p, z, r = _solve_batch(static, T_row, P_t, z,
-                                              self.n_sweeps, 16, **solver)
+                    self.rows_refinished += 1
+                    ln_p, z, r = sweeps(T_row, z, self.n_sweeps)
+                if settle:
+                    ln_p, z, r = settled(T_row, z)
                 worst = max(worst, float(r[-1]))
                 ln_vmr[k] = (ln_p.cpu().numpy()[:, self._indices]
                              - np.log(P_row)[:, None])
@@ -498,25 +554,27 @@ class FastChemTorch:
                 f"chemistry table build did not converge: final "
                 f"pressure-closure residual {worst:.2e} (> 1e-6); "
                 f"raise n_sweeps or shrink T_range/P_range_bar")
-        self._tab_logT = torch.as_tensor(logT, dtype=torch.float32)
-        self._tab_logP = torch.as_tensor(logP, dtype=torch.float32)
-        self._tab_lnvmr = torch.as_tensor(ln_vmr, dtype=torch.float32)
+        self._tab_logT = torch.as_tensor(logT)
+        self._tab_logP = torch.as_tensor(logP)
+        self._tab_lnvmr = torch.as_tensor(ln_vmr)
 
-    def _tables(self, device):
-        """The float32 table's (log T, log P, ln VMR) on ``device``."""
-        key = torch.device(device)
+    def _tables(self, device, dtype=torch.float32):
+        """The table's (log T, log P, ln VMR) in ``dtype`` on ``device``:
+        the float64 table, or one cast of it."""
+        key = (torch.device(device), dtype)
         if key not in self._on_device:
             self._on_device[key] = tuple(
-                x.to(key) for x in (self._tab_logT, self._tab_logP,
-                                    self._tab_lnvmr))
+                x.to(device=key[0], dtype=dtype)
+                for x in (self._tab_logT, self._tab_logP, self._tab_lnvmr))
         return self._on_device[key]
 
     def _vmr_from_table(self, temperatures, pressures_cgs):
         temperatures = _tensor(temperatures)
         dtype, dev = temperatures.dtype, temperatures.device
-        tab_logT, tab_logP, v = self._tables(dev)
-        logT = torch.log10(temperatures.to(torch.float32))
-        logP = torch.log10(_tensor(pressures_cgs, torch.float32, dev)
+        work = _work_dtype(temperatures)
+        tab_logT, tab_logP, v = self._tables(dev, work)
+        logT = torch.log10(temperatures.to(work))
+        logP = torch.log10(_tensor(pressures_cgs, work, dev)
                            / const.BAR_TO_CGS)
         ti, tf = _clip_interp_axis(tab_logT, logT)
         pj, pf = _clip_interp_axis(tab_logP, logP)
@@ -563,23 +621,25 @@ class FastChemTorch:
         """Layer-factored form for the whole-iteration kernels (table mode
         only): the (log T, log P) ln-VMR table interpolated onto the fixed
         layer pressures, the mass / m_bar scale folded in.  Returns (log10
-        T grid (nTc,), ln-MMR table (L, nTc, S)), float32 on the
-        pressures' device; the kernels' clipped 1-D log T interpolation
-        then reproduces :meth:`_vmr_from_table`, since bilinear
-        interpolation factors axis by axis."""
+        T grid (nTc,), ln-MMR table (L, nTc, S)) on the pressures' device,
+        float64 for float64 pressures and float32 otherwise; the kernels'
+        clipped 1-D log T interpolation then reproduces
+        :meth:`_vmr_from_table`, since bilinear interpolation factors axis
+        by axis."""
         if self.mode != "table":
             raise AttributeError(
                 "layer-factored chemistry requires table mode")
-        dev = _tensor(pressures_cgs).device
-        tab_logT, tab_logP, v = self._tables(dev)      # v (nTc, nPc, S)
-        logP = torch.log10(_tensor(pressures_cgs, torch.float32, dev)
-                           / const.BAR_TO_CGS)
-        pj, pf = _clip_interp_axis(tab_logP, logP)
-        tab = ((1 - pf)[None, :, None] * v[:, pj, :]
-               + pf[None, :, None] * v[:, pj + 1, :])    # (nTc, L, S)
-        tab = tab + torch.log(torch.as_tensor(
-            self._masses_g / self.m_bar_g, dtype=tab.dtype, device=dev))
-        return tab_logT, torch.movedim(tab, 0, 1).contiguous()
+        with telemetry.span("frei.chemistry.layer_tables"):
+            p = _tensor(pressures_cgs)
+            work, dev = _work_dtype(p), p.device
+            tab_logT, tab_logP, v = self._tables(dev, work)  # v (nTc, nPc, S)
+            logP = torch.log10(p.to(work) / const.BAR_TO_CGS)
+            pj, pf = _clip_interp_axis(tab_logP, logP)
+            tab = ((1 - pf)[None, :, None] * v[:, pj, :]
+                   + pf[None, :, None] * v[:, pj + 1, :])    # (nTc, L, S)
+            tab = tab + torch.log(torch.as_tensor(
+                self._masses_g / self.m_bar_g, dtype=tab.dtype, device=dev))
+            return tab_logT, torch.movedim(tab, 0, 1).contiguous()
 
     def supports_layer_factoring(self):
         """True when :meth:`layer_mmr_interp` is available (table mode):
@@ -590,14 +650,16 @@ class FastChemTorch:
         """Hot-loop MMR evaluator on the fixed layer grid (table mode
         only): returns ``mmr_fn(temps)`` with ``temps`` (..., L) ->
         (S, ..., L) mass mixing ratios, equal to ``self.mmr(temps,
-        pressures_cgs)`` to float32 rounding.
+        pressures_cgs)`` to the rounding of the lookup's precision.
 
         The P axis is interpolated once onto the layer pressures
-        (:meth:`layer_ln_mmr_tables`), which leaves a per-call clipped 1-D
-        log T interpolation, in float32 as the JAX package's one-hot
-        contraction computes it: the two weighted table rows of each
-        layer, added.  Temperatures are clamped to the table's range (as
-        ``_vmr_from_table`` does, unlike the opacity tables' zero-fill)."""
+        (:meth:`layer_ln_mmr_tables`, in the pressures' precision), which
+        leaves a per-call clipped 1-D log T interpolation in the
+        temperatures' precision (float64 for float64 temperatures, else
+        float32, as the JAX package's one-hot contraction computes it):
+        the two weighted table rows of each layer, added.  Temperatures
+        are clamped to the table's range (as ``_vmr_from_table`` does,
+        unlike the opacity tables' zero-fill)."""
         if self.mode != "table":
             raise AttributeError(
                 "layer-factored chemistry requires table mode")
@@ -606,11 +668,12 @@ class FastChemTorch:
         layers = torch.arange(L, device=tab.device)
 
         def mmr_fn(temps):
-            dtype = temps.dtype
-            x = torch.log10(temps.to(torch.float32))
-            i, f = _clip_interp_axis(logT_grid, x)
-            ln = ((1.0 - f)[..., None] * tab[layers, i]
-                  + f[..., None] * tab[layers, i + 1])    # (..., L, S)
+            dtype, work = temps.dtype, _work_dtype(temps)
+            x = torch.log10(temps.to(work))
+            i, f = _clip_interp_axis(logT_grid.to(work), x)
+            t = tab.to(work)
+            ln = ((1.0 - f)[..., None] * t[layers, i]
+                  + f[..., None] * t[layers, i + 1])    # (..., L, S)
             return torch.movedim(torch.exp(ln), -1, 0).to(dtype)
 
         return mmr_fn

@@ -495,12 +495,13 @@ _EQUILIBRIUM = {}
 
 def _equilibrium_chemistry():
     """``FastChemTorch`` table mode for the three species of the JAX
-    package's multi-species test (`tests/test_sweep_pallas.py:357`), the
-    default 64 x 32 table built on the card once per module."""
+    package's multi-species test (`tests/test_sweep_pallas.py:357`), then
+    K, frei's fourth chemistry golden species: the default 64 x 32 table
+    built on the card once per module."""
     from frei_tpu_torch.chemistry.fastchem import FastChemTorch
     if "chem" not in _EQUILIBRIUM:
         _EQUILIBRIUM["chem"] = FastChemTorch(
-            ("1H2-16O", "23Na", "48Ti-16O"), 2.4 * 1.67262192369e-24)
+            ("1H2-16O", "23Na", "48Ti-16O", "39K"), 2.4 * 1.67262192369e-24)
     return _EQUILIBRIUM["chem"]
 
 
@@ -516,14 +517,16 @@ class _FirstSpecies:
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("S_", [1, 3])
-@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("dtype, S_", [("float64", 1), ("float64", 3),
+                                       ("float32", 1), ("float32", 3),
+                                       ("float64", 4)])
 @pytest.mark.parametrize("kernel", ["iteration", "loop"])
 def test_whole_iteration_kernels_on_equilibrium_tables(kernel, dtype, S_):
     """One RC step of the iteration kernel, or one iteration of the loop
-    kernel, on equilibrium ln-MMR tables (64 log T points) of one and
-    three species, held as above (``_hold_step``), 500 bins x 30 layers,
-    six columns."""
+    kernel, on equilibrium ln-MMR tables (64 log T points) of one, three
+    and (in float64, where the loop's ring stages one species and reads
+    three from L2) four species, held as above (``_hold_step``), 500 bins
+    x 30 layers, six columns."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the iteration kernels run only "
                     "on the card")
@@ -531,7 +534,7 @@ def test_whole_iteration_kernels_on_equilibrium_tables(kernel, dtype, S_):
     dt = getattr(torch, dtype)
     dev = torch.device("cuda")
     chem = _equilibrium_chemistry()
-    model = chem if S_ == 3 else _FirstSpecies(chem, S_)
+    model = chem if S_ == 4 else _FirstSpecies(chem, S_)
     pack, params, T, Fu, Fd, done = _iteration_case(dt, dev, 6, 30, 500, S_,
                                                     "some", chem=model)
     assert tuple(pack.c_tab.shape) == (30, S_, 64)

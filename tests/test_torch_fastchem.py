@@ -9,8 +9,10 @@ the port against the JAX package on the same inputs:
 * ``equilibrium_log_pressures`` on the reference's 100-point profile:
   the opacity species' VMRs at rtol 1e-8 (the two solvers sum each
   element's conservation over the same species in another order);
-* the float32 ln-VMR table at ``grid_shape=(8, 6)`` at rtol 1e-6, and
-  its layer-factored form at rtol 1e-6;
+* the ln-VMR table at ``grid_shape=(8, 6)`` (stored in float64, read in
+  float32 by float32 lookups) at rtol 1e-6, and its layer-factored form
+  at rtol 1e-6; the float64 path of a float64 build (every row settled),
+  its float32 view one cast of it, and the build's spans and counters;
 * ``layer_mmr_interp`` against ``mmr`` (rtol 1e-5: float32 rounding of
   two interpolation orders, as the JAX test holds them);
 * table lookups against the JAX package's at rtol 1e-4: they take log10
@@ -178,18 +180,116 @@ def test_unknown_species_raises():
 
 
 def test_table_matches_jax(tables):
-    """The float32 ln-VMR table and its axes at grid_shape (8, 6), and
-    the build's convergence telemetry, against the JAX build."""
+    """The ln-VMR table and the axes of its float32 view at grid_shape
+    (8, 6), and the build's convergence telemetry, against the JAX
+    build (which stores the table in float32)."""
     jc, tc = tables
+    logT, logP, lnvmr = tc._tables("cpu", torch.float32)
     np.testing.assert_allclose(tc._tab_lnvmr.numpy(),
                                np.asarray(jc._tab_lnvmr), rtol=1e-6)
-    np.testing.assert_array_equal(tc._tab_logT.numpy(),
-                                  np.asarray(jc._tab_logT))
-    np.testing.assert_array_equal(tc._tab_logP.numpy(),
-                                  np.asarray(jc._tab_logP))
-    assert tc._tab_lnvmr.dtype == torch.float32
+    np.testing.assert_array_equal(logT.numpy(), np.asarray(jc._tab_logT))
+    np.testing.assert_array_equal(logP.numpy(), np.asarray(jc._tab_logP))
+    assert lnvmr.dtype == torch.float32
     assert tc.table_residual < 1e-6
     assert tc.table_residual == pytest.approx(jc.table_residual, rel=1e-3)
+
+
+@pytest.fixture(scope="module")
+def settled():
+    """The three species' (8, 6) table built for float64 solves."""
+    return F.FastChemTorch(SPECIES, M_BAR, grid_shape=(8, 6),
+                           build_device="cpu", dtype=torch.float64)
+
+
+def test_float32_view_is_one_cast_of_the_float64_table(tables):
+    """The table is stored in float64; its float32 view (what every
+    float32 lookup reads) is the float64 table and axes cast once, as
+    the float32 table was stored before: the same bits."""
+    _, tc = tables
+    assert tc._tab_lnvmr.dtype == torch.float64
+    view = tc._tables("cpu", torch.float32)
+    for got, stored in zip(view, (tc._tab_logT, tc._tab_logP,
+                                  tc._tab_lnvmr)):
+        want = torch.as_tensor(stored.numpy(), dtype=torch.float32)
+        assert got.dtype == torch.float32 and torch.equal(got, want)
+    assert tc._tables("cpu", torch.float32) is view
+    assert tc._tables("cpu", torch.float64)[2] is not view[2]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_layer_tables_interpolate_in_the_pressures_precision(tables,
+                                                             dtype):
+    """``layer_ln_mmr_tables`` of float64 pressures is the float64 table
+    interpolated in float64, of float32 pressures the float32 view in
+    float32, bit for bit against the same interpolation written out."""
+    _, tc = tables
+    dt = getattr(torch, dtype)
+    press = torch.tensor(np.logspace(-6, 2, 30) * BAR_TO_CGS, dtype=dt)
+    grid, tab = tc.layer_ln_mmr_tables(press)
+    logT, logP, v = (x.to(dt) for x in (tc._tab_logT, tc._tab_logP,
+                                        tc._tab_lnvmr))
+    j, f = F._clip_interp_axis(logP, torch.log10(press / BAR_TO_CGS))
+    want = ((1 - f)[None, :, None] * v[:, j] + f[None, :, None] * v[:, j + 1]
+            + torch.log(torch.tensor(tc._masses_g / tc.m_bar_g, dtype=dt)))
+    assert tab.dtype == dt and grid.dtype == dt
+    assert torch.equal(grid, logT)
+    assert torch.equal(tab, torch.movedim(want, 0, 1))
+
+
+def test_float64_lookups_read_the_float64_table(tables):
+    """Float64 temperatures are looked up in float64 (log10 T in
+    float64, the float64 table): against the float32 view, the two
+    differ by float32 rounding alone, and the hot-loop evaluator on the
+    float64 layer tables equals ``mmr`` to float64 rounding."""
+    _, tc = tables
+    press = torch.tensor(np.logspace(-6, 2, 30) * BAR_TO_CGS)
+    T = torch.tensor(_layer_temps())
+    got = tc.mmr(T, press)
+    low = tc.mmr(T.float(), press.float()).double()
+    assert got.dtype == torch.float64
+    np.testing.assert_allclose(got.numpy(), low.numpy(), rtol=1e-4)
+    assert not torch.equal(got, low)
+    hot = tc.layer_mmr_interp(press)(T)
+    assert hot.dtype == torch.float64
+    np.testing.assert_allclose(hot.numpy(), got.numpy(), rtol=1e-12)
+
+
+def test_float64_build_settles_every_row(tables, settled):
+    """A build for float64 solves sweeps each row on until it is settled:
+    more sweeps than the float32 build's rule, the same nodes, and its
+    table differs from that rule's where that rule stopped early (the
+    coldest row, 500 K: ~1e-2 in ln VMR), while rows that rule converged
+    agree to float64 rounding."""
+    _, tc = tables
+    assert settled.build_sweeps > tc.build_sweeps > 0
+    assert settled.table_residual <= 1e-8 and tc.table_residual <= 1e-8
+    assert torch.equal(settled._tab_logT, tc._tab_logT)
+    rows = (settled._tab_lnvmr - tc._tab_lnvmr).abs().amax((1, 2))
+    assert rows[0] > 1e-4
+    assert rows[-1] < 1e-12
+
+
+def test_chemistry_spans_and_counters(tables, monkeypatch):
+    """``frei.chemistry.build`` around a table build and
+    ``frei.chemistry.layer_tables`` around ``layer_ln_mmr_tables`` under
+    a profiler; a build leaves ``build_seconds``, ``build_sweeps`` and
+    ``rows_refinished`` beside ``table_residual``."""
+    from torch.profiler import ProfilerActivity, profile
+    _, tc = tables
+    assert tc.build_seconds > 0 and tc.build_sweeps > 0
+    assert 0 <= tc.rows_refinished <= 8 and tc.table_residual <= 1e-8
+
+    def no_build(self, *args):
+        self.build_sweeps = self.rows_refinished = 0
+    monkeypatch.setattr(F.FastChemTorch, "_build_vmr_table", no_build)
+    press = torch.tensor(np.logspace(-6, 2, 30) * BAR_TO_CGS)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        F.FastChemTorch(SPECIES, M_BAR, grid_shape=(8, 6),
+                        build_device="cpu")
+        tc.layer_ln_mmr_tables(press)
+    names = [e.name for e in prof.events()]
+    assert names.count("frei.chemistry.build") == 1
+    assert names.count("frei.chemistry.layer_tables") == 1
 
 
 def _layer_temps(L=30, seed=7):
@@ -389,10 +489,10 @@ def test_single_T_point_stack_falls_back(grids):
 
 def test_eager_solve_on_equilibrium_matches_xla(grids):
     """Three iterations on the equilibrium tables: the eager engine
-    against the JAX "xla" engine (the layer-factored mixing ratios are
-    float32 in both packages, from float32 log10 T that may differ by an
-    ulp: flux rtol 1e-4, temperatures 1e-5), and κ that varies across
-    layers (live chemistry, not a constant)."""
+    against the JAX "xla" engine (the JAX package's layer-factored
+    mixing ratios are float32, the port's float64 on a float64 grid:
+    flux rtol 1e-4, temperatures 1e-5), and κ that varies across layers
+    (live chemistry, not a constant)."""
     jg, tg, T0 = grids
     ref = j_solve(jnp.asarray(T0), jg._consts, jg.planet.physics_params(),
                   jg._kappa_fn, JConfig(n_timesteps=3, engine="xla"))
@@ -414,8 +514,7 @@ def test_whole_iteration_twins_on_equilibrium_tables(grids, engine):
     """The ``"iteration"`` and ``"loop"`` engines (their kernels' plain
     twins on the CPU) on the equilibrium tables, three species on 8 log T
     points, against the eager engine at the JAX tests' tolerances (flux
-    rtol 1e-4, temperatures 1e-5: the twins interpolate the float32
-    ln-MMR tables at the solve's precision)."""
+    rtol 1e-4, temperatures 1e-5)."""
     _, tg, T0 = grids
     args = (tg._consts, tg.planet.physics_params(), tg._kappa_fn)
     ref = solve_rc_batched(torch.tensor(T0), *args,
