@@ -90,7 +90,11 @@ Phases, one report line each, any failure raising (non-zero exit):
    solves of 64 columns x 3 iterations on ``"cuda"``, ``"iteration"``
    and ``"loop"`` against ``"eager"`` (flux rtol 1e-7 / 1e-4); the four
    maximum-VMR goldens of the exact solver on the card
-   (:func:`phase_chemistry`);
+   (:func:`phase_chemistry`); the table kernel: the default table of
+   frei's four species in float64 on the card (one launch) and on the
+   host, to 1e-11 in ln VMR, the rows' sweeps and refinished rows alike,
+   both walls and the serial-chain bound in the ``kernels`` line
+   (:func:`chemistry_table_kernel`; the host build ~170 s);
 4f. the differentiable solve, the associative scan, the standalone
    drivers and checkpoints (queue 1 items 11 and 13,
    :func:`phase_differentiable`), float64 at 500 bins x 30 layers: the
@@ -219,7 +223,7 @@ def ptxas_summary(report):
     out, kern, spill = [], None, ""
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '.*?"
-                      r"((?:emit|absorb|iteration|loop|rebin|kappa)"
+                      r"((?:emit|absorb|iteration|loop|rebin|kappa|table)"
                       r"(?:_[a-z]+)?)_kernel(?:I([fd]))?"
                       r"(?:Li(\d+)E)?(?:L[ib](\d+)E)?", line)
         if m and m[1].startswith("kappa"):
@@ -228,6 +232,8 @@ def ptxas_summary(report):
                 + ([{"1": "16-byte", "0": "element-wise"}[m[4]]]
                    if m[4] else [])
             kern = m[1] + (f"<{', '.join(args)}>" if args else "")
+        elif m and m[1] == "table":
+            kern = "chemistry table<double>"
         elif m:
             kern = (f"{m[1]}<{'float' if m[2] == 'f' else 'double'}"
                     + (f", NPT={m[3]}" if m[3] else "")
@@ -1117,27 +1123,85 @@ def phase_population():
 
 # the reference's chemistry test profile (`tests/test_fastchem.py:19-24`)
 CHEM_GOLDEN_MAX_VMR = {"H2O1": 3e-4, "Na": 3e-6, "K": 1.8e-7, "O1Ti1": 1.4e-7}
+# the table kernel's check: frei's chemistry species (the hj4sp_eq_loop
+# cell's), the float64 settle rule's table against the host build's to
+# 1e-11 in ln VMR (5.7e-14 measured); its serial-chain bound counts each
+# Newton step of each element of each sweep at an estimated 300 cycles of
+# dependent float64 latency (a max, exp, shuffle sums, log, a division)
+# at the card's highest SM clock
+CHEM4_SPECIES = ("1H2-16O", "23Na", "48Ti-16O", "39K")
+CHEM_TABLE_ATOL, CHEM_STEP_CYCLES = 1e-11, 300
+
+
+def chemistry_table_kernel():
+    """Phase 4e's table kernel check: the default 64 x 32 table of
+    :data:`CHEM4_SPECIES` in float64 (the settle rule) built on the card
+    (the launch count set to 0 just before) and on the host; the tables
+    to :data:`CHEM_TABLE_ATOL`, each row's sweeps equal or one settle
+    block apart, the refinished rows alike.  Returns the kernel's record
+    for the ``kernels`` line: both walls, the serial-chain bound."""
+    from frei_tpu_torch.chemistry import fastchem as F
+    from frei_tpu_torch.ops import chemistry_cuda as CH
+    m_bar = 2.4 * 1.67262192369e-24
+    CH.table_kernel.launches = 0
+    card = F.FastChemTorch(CHEM4_SPECIES, m_bar, dtype=torch.float64)
+    launches = CH.table_kernel.launches
+    assert launches == 1, launches
+    host = F.FastChemTorch(CHEM4_SPECIES, m_bar, dtype=torch.float64,
+                           build_device="cpu")
+    err = float((card._tab_lnvmr - host._tab_lnvmr).abs().max())
+    rows_apart = int(np.abs(card.row_sweeps - host.row_sweeps).max())
+    assert err <= CHEM_TABLE_ATOL, err
+    assert rows_apart <= F.SETTLE_SWEEPS, rows_apart
+    assert card.rows_refinished == host.rows_refinished
+    elements = len(F._prepare_static(F.load_chem_table())["order"])
+    steps = card.build_sweeps * elements * F.N_INNER
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0])
+    bound_ms = steps * CHEM_STEP_CYCLES / (mhz * 1e6) * 1e3
+    rec = {"ms": 1e3 * card.build_seconds,
+           "plain_ms": 1e3 * host.build_seconds, "bound_ms": bound_ms,
+           "bound_by": "serial chain",
+           "launches": launches, "max_abs_err": err,
+           "err_over_tol": err / CHEM_TABLE_ATOL,
+           "sweeps": card.build_sweeps, "newton_steps": steps,
+           "rows_refinished": card.rows_refinished,
+           "row_sweeps_apart": rows_apart}
+    log(f"[chemistry] table kernel, {CHEM4_SPECIES} 64 x 32 float64: card "
+        f"{card.build_seconds:.3f} s ({launches} launch), host "
+        f"{host.build_seconds:.1f} s; {card.build_sweeps} sweeps and "
+        f"{card.rows_refinished} refinished rows on both, rows' sweeps at "
+        f"most {rows_apart} apart; max |d ln VMR| {err:.3e} (atol "
+        f"{CHEM_TABLE_ATOL}); chain bound {bound_ms:.1f} ms ({steps} Newton "
+        f"steps x {CHEM_STEP_CYCLES} cycles at {mhz:.0f} MHz)")
+    return rec
 
 
 def phase_chemistry():
     """Phase 4e: ``Grid(planet)`` with no device named, the fixture and
     ``chemistry="equilibrium"`` (the default 64 x 32 table, built on the
-    grid's device), its build's wall; float64 solves of 64 columns x 3
-    iterations on that chemistry on ``"cuda"``, ``"iteration"`` and
-    ``"loop"`` against ``"eager"`` (flux rtol 1e-7 for ``"cuda"``, 1e-4
-    for the others: their kernels interpolate the float32 ln-MMR tables at
-    the solve's precision); the four maximum-VMR goldens of the exact
-    solver on the card.  Returns (the chemistry model, its build wall)."""
+    grid's device by one launch of the table kernel), its build's wall;
+    float64 solves of 64 columns x 3 iterations on that chemistry on
+    ``"cuda"``, ``"iteration"`` and ``"loop"`` against ``"eager"`` (flux
+    rtol 1e-7 for ``"cuda"``, 1e-4 for the others: their kernels
+    interpolate the float32 ln-MMR tables at the solve's precision); the
+    four maximum-VMR goldens of the exact solver on the card; then
+    :func:`chemistry_table_kernel`.  Returns (the chemistry model, its
+    build wall, the table kernel's record)."""
     from frei_tpu_torch import Grid, Planet, load_example_opacity
     from frei_tpu_torch.chemistry.fastchem import (FastChemTorch,
                                                    equilibrium_log_pressures,
                                                    load_chem_table)
+    from frei_tpu_torch.ops import chemistry_cuda
     from frei_tpu_torch.rt.solver import SolverConfig, solve_rc_batched
     wrappers = kernel_wrappers()
     grid = Grid(Planet.from_hot_jupiter(), T_ref=2400.0)
     assert grid.device.type == "cuda", grid.device
     stack = load_example_opacity(grid, scale_factor=1.0)
     torch.cuda.synchronize()
+    n0 = chemistry_cuda.table_kernel.launches
     t0 = time.perf_counter()
     grid.load_opacities(opacities=stack, chemistry="equilibrium")
     torch.cuda.synchronize()
@@ -1145,9 +1209,11 @@ def phase_chemistry():
     chem = grid.chemistry
     assert isinstance(chem, FastChemTorch) and chem.mode == "table"
     assert tuple(chem._tab_lnvmr.shape) == (64, 32, 1)
+    assert chemistry_cuda.table_kernel.launches == n0 + 1
     log(f"[chemistry] Grid(planet).load_opacities(chemistry=\"equilibrium\")"
-        f": the default 64 x 32 table built on the card in {wall:.2f} s "
-        f"(residual {chem.table_residual:.3e})")
+        f": the default 64 x 32 table built on the card in {wall:.2f} s, "
+        f"one table-kernel launch, {chem.build_sweeps} sweeps (residual "
+        f"{chem.table_residual:.3e})")
 
     g64 = Grid(Planet.from_hot_jupiter(), n_wl_bins=N_BINS,
                n_layers=N_LAYERS, T_ref=2400.0, dtype=torch.float64,
@@ -1192,7 +1258,7 @@ def phase_chemistry():
         log(f"[chemistry] max VMR of {hill} over the reference profile, exact "
             f"solve on the card: {got:.4e} (golden {want:.1e}, rtol 0.1)")
         assert abs(got - want) <= 0.1 * want, (hill, got, want)
-    return chem, wall
+    return chem, wall, chemistry_table_kernel()
 
 
 def phase_goldens_whole(engine):
@@ -2400,6 +2466,7 @@ def main(argv):
         parallel_rank(Path(argv[1]))
         return
     from frei_tpu_torch import native
+    from frei_tpu_torch.ops import chemistry_cuda as CH
     from frei_tpu_torch.ops import iteration_cuda as IC
     from frei_tpu_torch.ops import kappa_cuda as KC
     from frei_tpu_torch.ops import rebin_cuda as RC
@@ -2442,7 +2509,7 @@ def main(argv):
         # the whole-iteration kernels alone: build, parity, times and
         # variants
         log("\n".join(f"[build] {line}"
-                      for line in ptxas_summary(IC.build())))
+                      for line in ptxas_summary(IC.build() + CH.build())))
         phase_iteration_parity()
         phase_iteration_variants()
         phase_iteration_chemistry()
@@ -2471,12 +2538,12 @@ def main(argv):
 
     # phase 2: build, one compiler per source, all started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(5) as pool:
+    with ThreadPoolExecutor(6) as pool:
         host = pool.submit(native.build_native)
-        reports = list(pool.map(lambda m: m.build(), (S, IC, RC, KC)))
+        reports = list(pool.map(lambda m: m.build(), (S, IC, RC, KC, CH)))
         host.result()
-    log(f"[build] csrc/sweep.cu, iteration.cu, rebin.cu and kappa.cu (nvcc) "
-        f"and rebin_host.cc (g++) -> csrc/build/ in "
+    log(f"[build] csrc/sweep.cu, iteration.cu, rebin.cu, kappa.cu and "
+        f"chemistry.cu (nvcc) and rebin_host.cc (g++) -> csrc/build/ in "
         f"{time.perf_counter() - t0:.1f} s"
         + ("" if all(reports) else " (some already built)"))
     for line in ptxas_summary("".join(reports)):
@@ -2519,7 +2586,7 @@ def main(argv):
     # phase 4d: a population of eight planets on the sweep kernels
     phase_population()
     # phase 4e: equilibrium chemistry through Grid(planet)
-    chem, chem_build = phase_chemistry()
+    chem, chem_build, chem_table = phase_chemistry()
     log(f"[chemistry] on {smi}: default table builds on the card "
         f"{chem_build_3b:.2f} s (phase 3b), {chem_build:.2f} s (phase 4e)")
     # phase 4f: the differentiable solve, the associative scan, the
@@ -2600,9 +2667,16 @@ def main(argv):
         rows.append((name_, src, replaces, etl["launches"][name_], opac[k],
                      {x: opac[k][x] for x in ("ms_rounds", "variants")
                       if x in opac[k]}))
+    # the table kernel replaces no TPU kernel; it is bound by its chain
+    rows.append(("chemistry_table", "chemistry.cu", "none (XLA build)",
+                 chem_table["launches"], chem_table,
+                 {x: chem_table[x] for x in ("sweeps", "newton_steps",
+                                             "rows_refinished",
+                                             "row_sweeps_apart")}))
     kernels = []
     for name_, src, replaces, launches, r, extra in rows:
-        bound_ms, bound_by = bound(r["bytes"], r["flops"])
+        bound_ms, bound_by = (bound(r["bytes"], r["flops"]) if "bytes" in r
+                              else (r["bound_ms"], r["bound_by"]))
         kernels.append({
             "name": name_, "route": "cuda",
             "source": f"frei_tpu_torch/csrc/{src}", "replaces": replaces,

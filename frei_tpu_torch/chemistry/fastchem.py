@@ -33,9 +33,10 @@ contain it (1,091 (species, element) pairs with a positive count, against
 28 x 495), gathered once per solve.  It is the same sum, so the two agree
 to rounding, not bit for bit.  Run eagerly, a sweep is a few thousand
 small tensor operations whatever the batch size, so the table build
-(``FastChemTorch(mode="table")``) is bound by issuing them: on the card
-it replays one sweep captured in a CUDA graph, on the host it runs them
-on one thread (``build_device``).
+(``FastChemTorch(mode="table")``) runs them on one thread on the host
+and, on the card, is one launch of a kernel written for it
+(``csrc/chemistry.cu`` via ``ops/chemistry_cuda``: the same walk over
+the rows and the same sweeps, one warp a point; ``build_device``).
 """
 
 from __future__ import annotations
@@ -69,6 +70,17 @@ _NEG = -1e30  # stand-in for -inf that survives arithmetic
 #: ln M) by more than SETTLE_TOL; a row still moving after SETTLE_BLOCKS
 #: blocks fails the build
 SETTLE_SWEEPS, SETTLE_TOL, SETTLE_BLOCKS = 8, 1e-12, 500
+
+#: a table row after the first runs WARM_SWEEPS sweeps from the row above;
+#: one whose closure residual is then over REFINISH_TOL runs the cold
+#: row's ``n_sweeps`` more; each element's solve is N_INNER Newton steps
+WARM_SWEEPS, REFINISH_TOL, N_INNER = 16, 1e-8, 16
+
+
+def _unsettled(T, moved):
+    return RuntimeError(
+        f"chemistry table row at T = {T:.1f} K still moved by {moved:.2e} "
+        f"after {SETTLE_BLOCKS * SETTLE_SWEEPS} settling sweeps")
 
 
 def _work_dtype(x):
@@ -272,7 +284,7 @@ class _GaussSeidel:
         """One Gauss-Seidel sweep, in place on the state ``lam`` (B, E)
         and ``m`` (B,), at ``lnK`` (B, S) and ``ln_P`` (B,).  Returns the
         largest |log pressure-closure residual| (0-d), with no host
-        synchronization (so that a CUDA graph can hold the sweep)."""
+        synchronization."""
         ie, nuT = self.ie, self.nuT
         zero = lam.new_zeros((lam.shape[0], 1))
         y = lnK + lam @ nuT                                   # (B, S)
@@ -315,47 +327,10 @@ class _GaussSeidel:
         return ln_p, torch.cat([lam, m[:, None]], dim=1)
 
 
-class _GraphedSweep:
-    """One sweep of :class:`_GaussSeidel` at a fixed batch of B points,
-    captured in a CUDA graph on static buffers: each replay launches the
-    sweep's few thousand small kernels without the host issuing them.
-    Replays give the eager sweep's bits on the same device."""
-
-    def __init__(self, gs: _GaussSeidel, B: int, dtype, device):
-        E, S = gs.nuT.shape
-        z = torch.zeros
-        self.lnK = z((B, S), dtype=dtype, device=device)
-        self.ln_P = z((B,), dtype=dtype, device=device)
-        self.lam = z((B, E), dtype=dtype, device=device)
-        self.m = z((B,), dtype=dtype, device=device)
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):        # warm up off the state
-            gs.sweep(self.lnK, self.ln_P, self.lam.clone(), self.m.clone())
-        torch.cuda.current_stream(device).wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            self.r = gs.sweep(self.lnK, self.ln_P, self.lam, self.m)
-
-    def run(self, lnK, ln_P, lam, m, n_sweeps):
-        """``n_sweeps`` replays from the state ``lam``, ``m``; returns
-        copies of the final state and the residual history."""
-        for dst, src in ((self.lnK, lnK), (self.ln_P, ln_P),
-                         (self.lam, lam), (self.m, m)):
-            dst.copy_(src)
-        r_hist = self.r.new_empty((n_sweeps,))
-        for i in range(n_sweeps):
-            self.graph.replay()
-            r_hist[i].copy_(self.r)
-        return self.lam.clone(), self.m.clone(), r_hist
-
-
-def _gs_solve(static, T, P_bar, z0, n_sweeps: int, n_inner: int,
-              graphed: Optional[_GraphedSweep] = None, gs=None):
+def _gs_solve(static, T, P_bar, z0, n_sweeps: int, n_inner: int, gs=None):
     """Gauss-Seidel equilibrium solve of (B,) points from the state
-    ``z0`` (B, E + 1), in T's dtype on T's device, eagerly or by replays
-    of ``graphed``.  Returns ``(ln_p, z, r_hist)`` as
-    :func:`equilibrium_log_pressures` does."""
+    ``z0`` (B, E + 1), in T's dtype on T's device.  Returns ``(ln_p, z,
+    r_hist)`` as :func:`equilibrium_log_pressures` does."""
     E = static["nu"].shape[1]
     if gs is None:
         gs = _GaussSeidel(static, T.dtype, T.device, n_inner)
@@ -363,12 +338,9 @@ def _gs_solve(static, T, P_bar, z0, n_sweeps: int, n_inner: int,
     ln_P = torch.log(P_bar)                               # (B,)
     lam = z0[:, :E].clone()
     m = z0[:, E].clone()
-    if graphed is not None:
-        lam, m, r = graphed.run(lnK, ln_P, lam, m, n_sweeps)
-    else:
-        r = torch.stack([gs.sweep(lnK, ln_P, lam, m)
-                         for _ in range(n_sweeps)]) if n_sweeps else \
-            T.new_zeros((0,))
+    r = torch.stack([gs.sweep(lnK, ln_P, lam, m)
+                     for _ in range(n_sweeps)]) if n_sweeps else \
+        T.new_zeros((0,))
     return gs.finish(lnK, lam, m) + (r,)
 
 
@@ -425,15 +397,15 @@ class FastChemTorch:
         iteration's overshoots above 5000 K stay on the table).
     build_device : where the table is solved: the card unless the
         caller names another device (without CUDA, ``"cuda"`` raises and
-        names ``build_device="cpu"``).  A row is 32 points, so a sweep is
-        a few thousand small operations: on an H100 a sweep replayed from
-        a CUDA graph takes 10.2 ms, on its host 20.4 ms on one thread
-        (the host build's setting) and 55.7 ms on the default pool, and
-        74.8 ms issued eagerly to the card; the default table takes 42.4
-        s on the card and 104.9 s on the host (PERF.md §5).  So on the
-        card the build replays one sweep captured in a CUDA graph (the
-        eager sweep's bits).  The table itself is kept on the host and
-        copied, once per device and precision, to where it is read.
+        names ``build_device="cpu"``).  On a CUDA device the build is
+        one launch of the table kernel (``ops/chemistry_cuda``; it raises
+        if it cannot launch), on any other the plain sweeps: a row is 32
+        points, so an eager sweep is a few thousand small operations, ~20
+        ms on one host thread.  On an H100 the kernel sweeps a row in
+        0.42 ms; the default float64 table takes 2.55 s there (57.7 s
+        replaying the eager sweep from a CUDA graph, 171.5 s on its host;
+        PERF.md §6).  The table itself is kept on the host and copied,
+        once per device and precision, to where it is read.
     dtype : the precision of the solves the table serves.  float32 (the
         default) accepts a row once its pressure closure is within 1e-8,
         as the JAX package's build does, so that float32 solves keep
@@ -449,8 +421,9 @@ class FastChemTorch:
     Counters of a table build: ``table_residual`` (the worst final
     pressure-closure residual), ``build_seconds`` (its wall on the host
     clock, synchronized with the build device), ``build_sweeps``
-    (Gauss-Seidel sweeps run) and ``rows_refinished`` (rows that fell
-    back to the full-sweep continuation).
+    (Gauss-Seidel sweeps run), ``row_sweeps`` (those of each T row) and
+    ``rows_refinished`` (rows that fell back to the full-sweep
+    continuation).
     """
 
     def __init__(self, opacity_species: Sequence[str], m_bar_g: float,
@@ -499,52 +472,18 @@ class FastChemTorch:
         logP = np.linspace(np.log10(P_range_bar[0]),
                            np.log10(P_range_bar[1]), nP)
         P_row = 10.0 ** logP
-        P_t = torch.as_tensor(P_row, dtype=torch.float64, device=device)
-        ln_vmr = np.empty((nT, nP, len(self._indices)))
-        worst = 0.0
-        self.build_sweeps = self.rows_refinished = 0
+        T_rows = [10.0 ** logT[k] for k in range(nT)]
         static = _prepare_static(self.table)
-        with _one_host_thread(device), torch.inference_mode():
-            solver = dict(gs=_GaussSeidel(static, torch.float64, device, 16))
-            if device.type == "cuda":
-                solver["graphed"] = _GraphedSweep(solver["gs"], nP,
-                                                  torch.float64, device)
-
-            def sweeps(T_row, z, n):
-                self.build_sweeps += n
-                return _solve_batch(static, T_row, P_t, z, n, 16, **solver)
-
-            def settled(T_row, z):
-                for _ in range(SETTLE_BLOCKS):
-                    ln_p, z_next, r = sweeps(T_row, z, SETTLE_SWEEPS)
-                    moved = float((z_next - z).abs().max())
-                    if moved <= SETTLE_TOL:
-                        return ln_p, z_next, r
-                    z = z_next
-                raise RuntimeError(
-                    f"chemistry table row at T = {float(T_row[0]):.1f} K "
-                    f"still moved by {moved:.2e} after "
-                    f"{SETTLE_BLOCKS * SETTLE_SWEEPS} settling sweeps")
-            # Continuation: solve the hottest row cold (the chemistry is
-            # mildest there), then walk down in T warm-starting each row
-            # from the previous one, ~4x fewer sweeps overall.
-            z = None
-            for k in range(nT - 1, -1, -1):
-                T_row = torch.full((nP,), 10.0 ** logT[k],
-                                   dtype=torch.float64, device=device)
-                ln_p, z, r = sweeps(T_row, z,
-                                    self.n_sweeps if z is None else 16)
-                if float(r[-1]) > 1e-8:
-                    # the warm start from the neighbouring row was not
-                    # close enough (coarse grids, stiff cold rows):
-                    # finish the row with a full-sweep continuation
-                    self.rows_refinished += 1
-                    ln_p, z, r = sweeps(T_row, z, self.n_sweeps)
-                if settle:
-                    ln_p, z, r = settled(T_row, z)
-                worst = max(worst, float(r[-1]))
-                ln_vmr[k] = (ln_p.cpu().numpy()[:, self._indices]
-                             - np.log(P_row)[:, None])
+        build = (self._build_on_card if device.type == "cuda"
+                 else self._build_on_host)
+        ln_p, residual, self.row_sweeps, refinished = build(
+            static, T_rows, P_row, device, settle)
+        ln_vmr = ln_p - np.log(P_row)[None, :, None]
+        self.build_sweeps = int(self.row_sweeps.sum())
+        self.rows_refinished = int(refinished.sum())
+        worst = 0.0
+        for k in range(nT - 1, -1, -1):          # in build order
+            worst = max(worst, float(residual[k]))
         #: worst final pressure-closure residual over the table build:
         #: convergence telemetry, and a loud failure for (T, P) coverage
         #: the solver cannot reach
@@ -557,6 +496,77 @@ class FastChemTorch:
         self._tab_logT = torch.as_tensor(logT)
         self._tab_logP = torch.as_tensor(logP)
         self._tab_lnvmr = torch.as_tensor(ln_vmr)
+
+    def _build_on_host(self, static, T_rows, P_row, device, settle):
+        """The plain build, :class:`_GaussSeidel` sweeps on ``device``:
+        the rows from the hottest down, each warm-started from the one
+        above.  Returns the output species' ln p (nT, nP, n_out) and, a
+        row each, the final closure residual, the sweeps run and whether
+        the row was refinished."""
+        nT, nP = len(T_rows), len(P_row)
+        P_t = torch.as_tensor(P_row, dtype=torch.float64, device=device)
+        ln_out = np.empty((nT, nP, len(self._indices)))
+        residual = np.empty(nT)
+        row_sweeps = np.zeros(nT, dtype=np.int64)
+        refinished = np.zeros(nT, dtype=bool)
+        with _one_host_thread(device), torch.inference_mode():
+            gs = _GaussSeidel(static, torch.float64, device, N_INNER)
+
+            def sweeps(k, T_row, z, n):
+                row_sweeps[k] += n
+                return _solve_batch(static, T_row, P_t, z, n, N_INNER, gs=gs)
+
+            def settled(k, T_row, z):
+                for _ in range(SETTLE_BLOCKS):
+                    ln_p, z_next, r = sweeps(k, T_row, z, SETTLE_SWEEPS)
+                    moved = float((z_next - z).abs().max())
+                    if moved <= SETTLE_TOL:
+                        return ln_p, z_next, r
+                    z = z_next
+                raise _unsettled(float(T_row[0]), moved)
+            # Continuation: solve the hottest row cold (the chemistry is
+            # mildest there), then walk down in T warm-starting each row
+            # from the previous one, ~4x fewer sweeps overall.
+            z = None
+            for k in range(nT - 1, -1, -1):
+                T_row = torch.full((nP,), T_rows[k], dtype=torch.float64,
+                                   device=device)
+                ln_p, z, r = sweeps(k, T_row, z, self.n_sweeps if z is None
+                                    else WARM_SWEEPS)
+                if float(r[-1]) > REFINISH_TOL:
+                    # the warm start from the neighbouring row was not
+                    # close enough (coarse grids, stiff cold rows):
+                    # finish the row with a full-sweep continuation
+                    refinished[k] = True
+                    ln_p, z, r = sweeps(k, T_row, z, self.n_sweeps)
+                if settle:
+                    ln_p, z, r = settled(k, T_row, z)
+                residual[k] = float(r[-1])
+                ln_out[k] = ln_p.cpu().numpy()[:, self._indices]
+        return ln_out, residual, row_sweeps, refinished
+
+    def _build_on_card(self, static, T_rows, P_row, device, settle):
+        """The same build in one launch of the table kernel
+        (``ops/chemistry_cuda``), from ln K of each row, ln P and the
+        elements' targets computed on the host as the plain build
+        computes them.  Returns what :meth:`_build_on_host` returns."""
+        from ..ops import chemistry_cuda
+        gs = _GaussSeidel(static, torch.float64, "cpu", N_INNER)
+        f64 = dict(dtype=torch.float64)
+        lnK = _ln_k(gs.coeffs, torch.as_tensor(T_rows, **f64)[:, None])
+        ln_P = torch.log(torch.as_tensor(P_row, **f64))
+        out = chemistry_cuda.table_kernel(
+            chemistry_cuda.sweep_lists(static, gs, device),
+            lnK.to(device), ln_P.to(device),
+            torch.as_tensor(self._indices, dtype=torch.int32, device=device),
+            n_cold=self.n_sweeps, n_warm=WARM_SWEEPS, n_inner=N_INNER,
+            refinish_tol=REFINISH_TOL, settle=settle,
+            settle_sweeps=SETTLE_SWEEPS, settle_tol=SETTLE_TOL,
+            settle_blocks=SETTLE_BLOCKS)
+        if out.failed_row >= 0:
+            raise _unsettled(T_rows[out.failed_row], out.moved)
+        return out.ln_p.cpu().numpy(), out.residual, out.sweeps, \
+            out.refinished
 
     def _tables(self, device, dtype=torch.float32):
         """The table's (log T, log P, ln VMR) in ``dtype`` on ``device``:

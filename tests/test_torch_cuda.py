@@ -2,7 +2,10 @@
 emit/absorb sweeps (``csrc/sweep.cu``, for one shared planet and with
 per-column constants), the whole-iteration and
 whole-loop kernels (``csrc/iteration.cu``), the grouped trapezoid rebin
-(``csrc/rebin.cu``) and the batched kappa lookup (``csrc/kappa.cu``);
+(``csrc/rebin.cu``), the batched kappa lookup (``csrc/kappa.cu``) and
+the equilibrium chemistry table build (``csrc/chemistry.cu``, against
+the host build of the same table and, under the float32 rule, a stored
+copy of the JAX build's);
 then ``chip_smoke.py`` phase 4f's checks on the card: the differentiable
 solve (forward bit for bit the eager solve, gradients against the CPU's
 at rtol 1e-8), the associative scan, the standalone drivers and
@@ -29,6 +32,8 @@ rows) or 1e-6 (float32 rows, one rounding of each bin); the kappa kernel
 against the gather twin at rtol 1e-10 (float64) or 1e-5 plus 1e-7 of
 the largest value (float32, summation order).
 """
+
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -583,6 +588,112 @@ def test_iteration_kernels_reject_bad_arguments():
         IC.rc_loop_kernel(T, Fu, Fd, pack,
                           params._replace(g=torch.full((5,), params.g)),
                           1, 2, 3.0)
+
+
+# --------------------------------------------------------------------------
+# The equilibrium chemistry table build (csrc/chemistry.cu)
+# --------------------------------------------------------------------------
+
+_CHEM = (("1H2-16O", "23Na", "48Ti-16O", "39K"), 2.4 * 1.67262192369e-24)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 6), (6, 40)])
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_chemistry_table_kernel_matches_host_build(dtype, shape):
+    """The table built by the kernel (one launch) against the plain host
+    build of the same table, to 1e-11 in ln VMR under both rules (they
+    take the same sweeps and differ by summation order alone: 5.7e-14
+    and 3.8e-15 measured on an H100); each row's sweeps equal, or one
+    settle block apart; the refinished rows counted alike.  The float32
+    rule is the JAX package's build: at (8, 6) its table is held against
+    the JAX build's as ``test_table_matches_jax`` holds the host build,
+    at rtol 1e-6, through the stored copy of it that
+    ``test_stored_jax_table_is_the_jax_build`` keeps true.  A 40-point
+    row takes two points a warp."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the table kernel runs only on "
+                    "the card")
+    from frei_tpu_torch.chemistry import fastchem as F
+    from frei_tpu_torch.ops import chemistry_cuda as CC
+    dt = getattr(torch, dtype)
+    n0 = CC.table_kernel.launches
+    card = F.FastChemTorch(*_CHEM, grid_shape=shape, dtype=dt)
+    assert CC.table_kernel.launches == n0 + 1
+    host = F.FastChemTorch(*_CHEM, grid_shape=shape, dtype=dt,
+                           build_device="cpu")
+    got, want = card._tab_lnvmr.numpy(), host._tab_lnvmr.numpy()
+    assert np.abs(got - want).max() <= 1e-11
+    if dtype == "float32" and shape == (8, 6):
+        jax = np.load(Path(__file__).resolve().parent / "data"
+                      / "chem_table_jax_8x6.npz")
+        n = len(jax["species"])
+        assert tuple(jax["species"]) == _CHEM[0][:n]
+        np.testing.assert_allclose(got[..., :n], jax["ln_vmr"], rtol=1e-6)
+    block = F.SETTLE_SWEEPS if dtype == "float64" else 0
+    assert np.abs(card.row_sweeps - host.row_sweeps).max() <= block
+    assert card.build_sweeps == int(card.row_sweeps.sum())
+    assert card.rows_refinished == host.rows_refinished
+    assert card.table_residual <= 1e-8 and host.table_residual <= 1e-8
+    assert card.build_seconds > 0
+
+
+@pytest.mark.cuda
+def test_chemistry_table_kernel_raises_where_the_host_build_raises():
+    """An unreachable T range fails the kernel build as it fails the host
+    build: under the float32 rule the final closure stays above 1e-6
+    (both builds, one message); under the float64 rule the hottest row of
+    4-8 K still moves after 500 settle blocks (by 1.65 in the host build,
+    which takes ~100 s to say so; the kernel about two seconds)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the table kernel runs only on "
+                    "the card")
+    from frei_tpu_torch.chemistry import fastchem as F
+    kw = dict(grid_shape=(4, 3), T_range=(50.0, 100.0))
+    msg = r"did not converge: final pressure-closure residual 2\.\d\de-05"
+    for device in ("cuda", "cpu"):
+        with pytest.raises(RuntimeError, match=msg):
+            F.FastChemTorch(*_CHEM, build_device=device, **kw)
+    with pytest.raises(RuntimeError, match=r"row at T = 8\.0 K still moved "
+                       r"by .+ after 4000 settling sweeps"):
+        F.FastChemTorch(*_CHEM, grid_shape=(2, 1), T_range=(4.0, 8.0),
+                        dtype=torch.float64)
+
+
+@pytest.mark.cuda
+def test_chemistry_table_kernel_rejects_bad_arguments():
+    """The wrapper takes CUDA float64 tables and int32 indices only."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the table kernel runs only on "
+                    "the card")
+    from frei_tpu_torch.chemistry import fastchem as F
+    from frei_tpu_torch.ops import chemistry_cuda as CC
+    static = F._prepare_static(F.load_chem_table())
+    dev = torch.device("cuda")
+    gs = F._GaussSeidel(static, torch.float64, "cpu", F.N_INNER)
+    lists = CC.sweep_lists(static, gs, dev)
+    S = static["nu"].shape[0]
+    lnK = torch.zeros((2, S), dtype=torch.float64, device=dev)
+    ln_P = torch.zeros(3, dtype=torch.float64, device=dev)
+    idx = torch.zeros(1, dtype=torch.int32, device=dev)
+    rule = dict(n_cold=60, n_warm=16, n_inner=16, refinish_tol=1e-8,
+                settle=False, settle_sweeps=8, settle_tol=1e-12,
+                settle_blocks=500)
+    n0 = CC.table_kernel.launches
+    for bad, err, match in ((dict(lnK=lnK.cpu()), RuntimeError, "CUDA"),
+                            (dict(ln_P=ln_P.cpu()), RuntimeError, "CUDA"),
+                            (dict(lnK=lnK.float()), TypeError, "float64"),
+                            (dict(out_idx=idx.long()), TypeError, "int32"),
+                            (dict(lnK=lnK[:, 1:].contiguous()), ValueError,
+                             "species"),
+                            (dict(ln_P=ln_P[:0]), ValueError, "points")):
+        args = dict(lnK=lnK, ln_P=ln_P, out_idx=idx) | bad
+        with pytest.raises(err, match=match):
+            CC.table_kernel(lists, args["lnK"], args["ln_P"],
+                            args["out_idx"], **rule)
+    with pytest.raises(ValueError, match="at least one sweep"):
+        CC.table_kernel(lists, lnK, ln_P, idx, **(rule | dict(n_warm=0)))
+    assert CC.table_kernel.launches == n0
 
 
 # --------------------------------------------------------------------------

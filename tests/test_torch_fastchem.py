@@ -194,6 +194,22 @@ def test_table_matches_jax(tables):
     assert tc.table_residual == pytest.approx(jc.table_residual, rel=1e-3)
 
 
+def test_stored_jax_table_is_the_jax_build(tables):
+    """``tests/data/chem_table_jax_8x6.npz`` is the JAX build's (8, 6)
+    table of the three species (stored in float32) to a float32 ulp, and
+    the port's host build is within the rtol 1e-6 it is held to: the card
+    tests, which cannot run the JAX package, hold the table kernel's
+    float32-rule table against this file."""
+    jc, tc = tables
+    d = np.load(TESTS / "data" / "chem_table_jax_8x6.npz")
+    assert tuple(d["species"]) == SPECIES
+    assert d["ln_vmr"].dtype == np.float32
+    np.testing.assert_allclose(d["ln_vmr"], np.asarray(jc._tab_lnvmr),
+                               rtol=2.0 ** -23)
+    np.testing.assert_allclose(tc._tab_lnvmr.numpy(), d["ln_vmr"],
+                               rtol=1e-6)
+
+
 @pytest.fixture(scope="module")
 def settled():
     """The three species' (8, 6) table built for float64 solves."""
@@ -290,6 +306,112 @@ def test_chemistry_spans_and_counters(tables, monkeypatch):
     names = [e.name for e in prof.events()]
     assert names.count("frei.chemistry.build") == 1
     assert names.count("frei.chemistry.layer_tables") == 1
+
+
+def test_host_build_never_loads_the_kernel_library(monkeypatch):
+    """A build on the host runs the plain sweep and leaves the table
+    kernel's library unbuilt and unloaded."""
+    from frei_tpu_torch.ops import chemistry_cuda, cuda_build
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the host build loaded a CUDA library")
+    for module in (chemistry_cuda, cuda_build):
+        monkeypatch.setattr(module, "load_library", refuse)
+        monkeypatch.setattr(module, "build_library", refuse)
+    launches = chemistry_cuda.table_kernel.launches
+    tc = F.FastChemTorch(SPECIES, M_BAR, grid_shape=(3, 2),
+                         build_device="cpu")
+    assert tc.build_sweeps > 0 and tc.table_residual <= 1e-8
+    assert chemistry_cuda.table_kernel.launches == launches
+
+
+@pytest.mark.parametrize("rule", ["float32", "float64"])
+def test_host_build_records_each_rows_sweeps(tables, settled, rule):
+    """``row_sweeps`` holds each row's sweeps, as the table kernel
+    returns them: the cold row's ``n_sweeps`` or a warm row's 16, the
+    cold row's count again where the row was refinished, then (float64
+    rule) whole settle blocks, at least one a row."""
+    tc = tables[1] if rule == "float32" else settled
+    rows = tc.row_sweeps
+    assert rows.shape == (8,) and int(rows.sum()) == tc.build_sweeps
+    extra = rows - np.where(np.arange(8) == 7, tc.n_sweeps, F.WARM_SWEEPS)
+    if rule == "float32":
+        assert set(extra.tolist()) <= {0, tc.n_sweeps}
+        refinished = extra == tc.n_sweeps
+    else:
+        refinished = extra % F.SETTLE_SWEEPS == tc.n_sweeps % F.SETTLE_SWEEPS
+        blocks = extra - np.where(refinished, tc.n_sweeps, 0)
+        assert (blocks >= F.SETTLE_SWEEPS).all()
+        assert (blocks % F.SETTLE_SWEEPS == 0).all()
+    assert int(refinished.sum()) == tc.rows_refinished
+
+
+def test_sweep_lists_hold_the_stoichiometry(monkeypatch):
+    """The table kernel's CSR lists give back the stoichiometry, hold
+    each element's terms in the sweep's order with its own term first and
+    the atomic start's constants; the kernel's limits are refused (an
+    element with a negative count, or with more terms than a warp
+    holds), and so are host tensors, before anything is loaded."""
+    from frei_tpu_torch.ops import chemistry_cuda as CC
+    static = F._prepare_static(F.load_chem_table())
+    gs = F._GaussSeidel(static, torch.float64, "cpu", F.N_INNER)
+    lists = CC.sweep_lists(static, gs, "cpu")
+    nu, ie = static["nu"], static["ie"]
+    S, E = nu.shape
+    off = lists.sp_off.numpy()
+    dense = np.zeros_like(nu)
+    for i in range(S):
+        q = slice(off[i], off[i + 1])
+        dense[i, lists.sp_el[q].numpy()] = lists.sp_nu[q].numpy()
+    np.testing.assert_array_equal(dense, nu)
+    np.testing.assert_array_equal(lists.el_j.numpy(), static["order"])
+    el_off = lists.el_off.numpy()
+    assert el_off[0] == 0 and el_off[-1] == lists.aug_sp.shape[0]
+    own = lists.aug_sp[el_off[:-1]]
+    assert (own == -1).all() and (lists.aug_sp == -1).sum() == E - 1
+    assert (lists.aug_nu[el_off[:-1]] == 1).all()
+    assert (lists.aug_lnnu[el_off[:-1]] == 0).all()
+    assert (np.diff(el_off) <= CC.MAX_ELEMENT_TERMS).all()
+    np.testing.assert_array_equal(lists.cat_nu.numpy() < 0, True)
+    np.testing.assert_array_equal(lists.an_nu.numpy() > 0, True)
+    assert lists.cat_sp.shape[0] + lists.an_sp.shape[0] == \
+        np.count_nonzero(nu[:, ie])
+    eps = torch.as_tensor(static["eps"], dtype=torch.float64)
+    assert lists.ln_eps_sum == float(torch.log(torch.sum(eps)))
+    assert (lists.ie, lists.iH, lists.iH2) == (ie, static["iH"],
+                                                static["iH2"])
+
+    monkeypatch.setattr(CC, "MAX_ELEMENT_TERMS", 4)
+    with pytest.raises(ValueError, match="terms; the kernel takes 4"):
+        CC.sweep_lists(static, gs, "cpu")
+    monkeypatch.undo()
+    signed = dict(static, nu=static["nu"].copy())
+    j = int(static["order"][0])
+    signed["nu"][int(np.nonzero(nu[:, j])[0][0]), j] *= -1
+    with pytest.raises(ValueError, match=f"element {j} has a negative"):
+        CC.sweep_lists(signed, F._GaussSeidel(signed, torch.float64, "cpu",
+                                              F.N_INNER), "cpu")
+
+    lnK = torch.zeros((2, S), dtype=torch.float64)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        CC.table_kernel(lists, lnK, torch.zeros(3, dtype=torch.float64),
+                        torch.zeros(1, dtype=torch.int32), n_cold=60,
+                        n_warm=16, n_inner=16, refinish_tol=1e-8,
+                        settle=False, settle_sweeps=8, settle_tol=1e-12,
+                        settle_blocks=500)
+
+
+@pytest.mark.parametrize("nP, want", [
+    (32, (4, 8)), (40, (4, 8)), (64, (4, 8)), (33, (4, 8)), (6, (4, 2)),
+    (5, (4, 2)), (3, (3, 1)), (1, (1, 1))])
+def test_table_plan(nP, want):
+    """The table kernel's launch: a warp for each point of a row up to
+    32, four a block, a cluster of at most 8 blocks."""
+    from frei_tpu_torch.ops import chemistry_cuda as CC
+    plan = CC.table_plan(nP)
+    assert tuple(plan) == want
+    assert plan.warps * plan.blocks >= min(nP, 32)
+    assert plan.warps * (plan.blocks - 1) < min(nP, 32)
 
 
 def _layer_temps(L=30, seed=7):

@@ -1,22 +1,28 @@
-"""Where to build the equilibrium chemistry table: host or card.
+"""Time the equilibrium chemistry table build: the card's kernel against
+the host's plain build.
 
     python3 tools/torch_chem_build.py [--full] [--sweeps 20]
 
-``FastChemTorch(mode="table")`` solves a (64 T x 32 P) table row by row:
-each row is 32 points, each Gauss-Seidel sweep a few thousand small
-tensor operations, so the build is bound by issuing them, not by
-arithmetic.  This script times one sweep (``--sweeps`` of them, after one
-warm-up) at the row's fixed 32-point float64 shape
+``FastChemTorch(mode="table")`` solves a (64 T x 32 P) table row by row
+with Gauss-Seidel sweeps, each row warm-started from the one above: on
+the card in one launch of the table kernel (``csrc/chemistry.cu`` via
+``ops/chemistry_cuda``), on the host with the plain sweep
+(``fastchem._GaussSeidel``) on one thread.  This script
 
-* on the host CPU with the default thread pool and with one thread (the
-  build's setting);
-* on the card, issued eagerly and replayed from a CUDA graph;
+* times one host sweep (``--sweeps`` of them, after one warm-up) at the
+  row's 32-point float64 shape, on the default thread pool and on one
+  thread (the host build's setting);
+* times the kernel's default build of four species (frei's chemistry
+  species) under the float64 and the float32 rule, :data:`REPEATS` times
+  each, with its sweeps and time a sweep;
+* times the kernel's serial chain: ``--sweeps`` sweeps of the default
+  table's hottest row from the atomic start (no refinish, no settle) at
+  16 and at 8 Newton steps an element, CUDA events around each; the
+  difference is 8 Newton steps of every element of a sweep;
+* with ``--full``, times the host's default builds and compares their
+  tables and per-row sweeps with the kernel's.
 
-checks that the graph replays give the eager sweep's bits on the card and
-that the card's state matches the host's to rounding, and with ``--full``
-times the whole default build (three opacity species) on the host and on
-the card's CUDA graph and compares the two tables.  Prints one JSON line
-(per-sweep ms, build walls in s) and the card's name and power limit.
+Prints the card's name and power limit, then one JSON line.
 """
 
 from __future__ import annotations
@@ -28,59 +34,69 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 from frei_tpu_torch.chemistry import fastchem as F  # noqa: E402
+from frei_tpu_torch.ops import chemistry_cuda as CC  # noqa: E402
 
-SPECIES = ("1H2-16O", "23Na", "48Ti-16O")
+SPECIES = ("1H2-16O", "23Na", "48Ti-16O", "39K")
 M_BAR = 2.4 * 1.67262192369e-24
+RULES = {"float64": torch.float64, "float32": torch.float32}
+#: the kernel's builds timed under each rule
+REPEATS = 3
 
 
-def row_state(device):
-    """A warm row: the cold solve of the 1500 K row of the default grid."""
-    T = torch.full((32,), 1500.0, dtype=torch.float64, device=device)
-    P = torch.logspace(-8, 3, 32, dtype=torch.float64, device=device)
+def host_sweep_ms(n, threads=None):
+    """Mean ms of one host sweep of a warm 32-point row (the 1500 K row
+    of the default grid after 20 cold sweeps)."""
+    static = F._prepare_static(F.load_chem_table())
+    T = torch.full((32,), 1500.0, dtype=torch.float64)
+    P = torch.logspace(-8, 3, 32, dtype=torch.float64)
     _, z = F.equilibrium_log_pressures(F.load_chem_table(), T, P,
                                        n_sweeps=20)
-    return T, P, z
-
-
-def sweep_ms(device, n, graph, threads=None):
-    """Mean ms of one sweep at the row's shape, and the state after n."""
-    static = F._prepare_static(F.load_chem_table())
-    T, P, z = row_state(device)
     old = torch.get_num_threads()
     if threads:
         torch.set_num_threads(threads)
     try:
         with torch.inference_mode():
-            gs = F._GaussSeidel(static, torch.float64, device, 16)
-            solver = {"gs": gs}
-            if graph:
-                solver["graphed"] = F._GraphedSweep(gs, 32, torch.float64,
-                                                    device)
-            F._gs_solve(static, T, P, z, 1, 16, **solver)   # warm-up
-            if device.type == "cuda":
-                torch.cuda.synchronize()
+            gs = F._GaussSeidel(static, torch.float64, T.device, F.N_INNER)
+            F._gs_solve(static, T, P, z, 1, F.N_INNER, gs=gs)   # warm-up
             t0 = time.perf_counter()
-            ln_p, zn, r = F._gs_solve(static, T, P, z, n, 16, **solver)
-            float(r[-1])                                     # waits
-            ms = (time.perf_counter() - t0) / n * 1e3
+            F._gs_solve(static, T, P, z, n, F.N_INNER, gs=gs)
+            return (time.perf_counter() - t0) / n * 1e3
     finally:
         torch.set_num_threads(old)
-    return ms, ln_p.cpu(), zn.cpu()
 
 
-def build_wall(device):
-    """The default build's wall on ``device`` (the card: the graph)."""
-    if device.type == "cuda":
+def chain_ms(n_sweeps, n_inner):
+    """Card ms of ``n_sweeps`` sweeps of the default table's hottest row
+    (32 points, from the atomic start) at ``n_inner`` Newton steps an
+    element, by CUDA events; the median of three launches."""
+    dev = torch.device("cuda")
+    static = F._prepare_static(F.load_chem_table())
+    gs = F._GaussSeidel(static, torch.float64, "cpu", F.N_INNER)
+    f64 = dict(dtype=torch.float64)
+    lists = CC.sweep_lists(static, gs, dev)
+    lnK = F._ln_k(gs.coeffs, torch.tensor([[6000.0]], **f64)).to(dev)
+    ln_P = torch.log(torch.logspace(-8, 3, 32, **f64)).to(dev)
+    idx = torch.zeros(1, dtype=torch.int32, device=dev)
+    times = []
+    for _ in range(4):
+        start, stop = (torch.cuda.Event(enable_timing=True)
+                       for _ in range(2))
+        start.record()
+        CC.table_kernel(lists, lnK, ln_P, idx, n_cold=n_sweeps,
+                        n_warm=n_sweeps, n_inner=n_inner,
+                        refinish_tol=float("inf"), settle=False,
+                        settle_sweeps=1, settle_tol=0.0, settle_blocks=1)
+        stop.record()
         torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    chem = F.FastChemTorch(SPECIES, M_BAR, build_device=device)
-    return time.perf_counter() - t0, chem
+        times.append(start.elapsed_time(stop))
+    return float(np.median(times[1:]))
 
 
 def main(argv):
@@ -88,12 +104,10 @@ def main(argv):
     ap.add_argument("--sweeps", type=int, default=20)
     ap.add_argument("--full", action="store_true")
     args = ap.parse_args(argv)
-    cpu = torch.device("cpu")
-    out = {"threads_default": torch.get_num_threads()}
-    ms, ln_cpu, _ = sweep_ms(cpu, args.sweeps, False)
-    out["cpu_ms_default_threads"] = ms
-    ms, _, _ = sweep_ms(cpu, args.sweeps, False, threads=1)
-    out["cpu_ms_one_thread"] = ms
+    out = {"threads_default": torch.get_num_threads(),
+           "cpu_ms_default_threads": host_sweep_ms(args.sweeps),
+           "cpu_ms_one_thread": host_sweep_ms(args.sweeps, threads=1)}
+    card = {}
     if torch.cuda.is_available():
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -101,24 +115,36 @@ def main(argv):
             timeout=60).stdout.strip().splitlines()[0]
         print(smi, flush=True)
         out["card"] = smi
-        dev = torch.device("cuda")
-        ms_e, ln_e, z_e = sweep_ms(dev, args.sweeps, False)
-        ms_g, ln_g, z_g = sweep_ms(dev, args.sweeps, True)
-        out.update(cuda_ms_eager=ms_e, cuda_ms_graph=ms_g,
-                   graph_bits_equal=bool(torch.equal(ln_e, ln_g)
-                                         and torch.equal(z_e, z_g)),
-                   cuda_vs_cpu_max_abs=float((ln_e - ln_cpu).abs().max()))
+        for rule, dtype in RULES.items():
+            walls = []
+            for _ in range(REPEATS):
+                card[rule] = F.FastChemTorch(SPECIES, M_BAR, dtype=dtype)
+                walls.append(card[rule].build_seconds)
+            c = card[rule]
+            out[f"kernel_build_s_{rule}"] = walls
+            out[f"kernel_sweeps_{rule}"] = c.build_sweeps
+            out[f"kernel_rows_refinished_{rule}"] = c.rows_refinished
+            out[f"kernel_ms_per_sweep_{rule}"] = (
+                1e3 * min(walls) / c.build_sweeps)
+        t16, t8 = chain_ms(args.sweeps, 16), chain_ms(args.sweeps, 8)
+        elements = len(F._prepare_static(F.load_chem_table())["order"])
+        out.update(chain_ms_inner16=t16, chain_ms_inner8=t8,
+                   chain_ms_per_sweep=t16 / args.sweeps,
+                   chain_us_per_newton_step=(
+                       1e3 * (t16 - t8) / (args.sweeps * 8 * elements)),
+                   kernel_launches=CC.table_kernel.launches)
     if args.full:
-        wall, chem_cpu = build_wall(cpu)
-        out["build_wall_cpu_s"] = wall
-        if torch.cuda.is_available():
-            wall, chem_gpu = build_wall(torch.device("cuda"))
-            out["build_wall_cuda_graph_s"] = wall
-            a, b = chem_cpu._tab_lnvmr, chem_gpu._tab_lnvmr
-            out["table_max_rel_cuda_vs_cpu"] = float(
-                ((a - b).abs() / a.abs()).max())
-            out["table_residual"] = [chem_cpu.table_residual,
-                                     chem_gpu.table_residual]
+        for rule, dtype in RULES.items():
+            host = F.FastChemTorch(SPECIES, M_BAR, dtype=dtype,
+                                   build_device="cpu")
+            out[f"host_build_s_{rule}"] = host.build_seconds
+            out[f"host_sweeps_{rule}"] = host.build_sweeps
+            if rule in card:
+                a, b = card[rule]._tab_lnvmr, host._tab_lnvmr
+                out[f"table_max_abs_kernel_vs_host_{rule}"] = float(
+                    (a - b).abs().max())
+                out[f"row_sweeps_equal_{rule}"] = bool(
+                    (card[rule].row_sweeps == host.row_sweeps).all())
     print(json.dumps({"chem_build": out}), flush=True)
 
 
