@@ -2,15 +2,13 @@
 """Smoke run of frei_tpu_torch's main path on one NVIDIA GPU.
 
     python3 chip_smoke.py              # every phase (one card)
-    python3 chip_smoke.py --sweeps     # build sweep.cu; phases 3, 3d, 3f
-    python3 chip_smoke.py --iteration  # build iteration.cu; phases 3b, 3e
+    python3 chip_smoke.py --sweeps     # build sweep.cu; phases 3, 3f
+    python3 chip_smoke.py --iteration  # build iteration.cu; phase 3b
     python3 chip_smoke.py --kappa      # build kappa.cu; phase 3c's kappa part
     python3 chip_smoke.py --differentiable   # build sweep.cu; phase 4f and
                                              # phase 5's gradient leg
     python3 chip_smoke.py --parallel   # build sweep.cu, iteration.cu;
                                        # phase 4g
-    python3 chip_smoke.py --ab-leg     # one leg of a parent/change pair
-    python3 chip_smoke.py --ab-leg kappa   # the same, the kappa lookup alone
 
 Phases, one report line each, any failure raising (non-zero exit):
 
@@ -19,7 +17,8 @@ Phases, one report line each, any failure raising (non-zero exit):
 2. build: compiles ``frei_tpu_torch/csrc/sweep.cu``, ``csrc/iteration.cu``,
    ``csrc/rebin.cu`` and ``csrc/kappa.cu`` with nvcc and the host rebin
    library ``csrc/rebin_host.cc`` with g++, all at once, and prints the
-   build time and ptxas's register report;
+   build time and ptxas's report (registers, spills, shared memory) of
+   each kernel instantiation;
 3. kernel parity: each sweep kernel against its plain PyTorch twin on
    the card, fused and materialized opacity, some columns frozen, emit
    both as the solve's emits run it and with the final emit's dtaus:
@@ -28,11 +27,6 @@ Phases, one report line each, any failure raising (non-zero exit):
    the change the sums' own difference makes to the update, see
    :func:`phase_parity`), with each kernel's time against its twin's at
    the 8192-column shape, no column frozen (the main path's inputs);
-3d. where a sweep's time goes: the sweep kernels against their
-   measurement variants (a copy with the same loads and stores, the
-   arithmetic alone, no quadratures, the ring at depth 0, the ring
-   filled by TMA bulk copies, a persistent grid; see
-   :func:`phase_sweep_variants`);
 3f. per-column sweeps (population mode): the sweep kernels with
    per-column dtau factors and F_toa (bench.py's population draws)
    against their twins, float64 at 64 columns (rtol 1e-10) and float32
@@ -50,12 +44,6 @@ Phases, one report line each, any failure raising (non-zero exit):
    default table for ``1H2-16O``, ``23Na``, ``48Ti-16O`` built on the
    card, its layer ln-MMR tables on 64 log T points for one and for three
    species, float64 at 64 columns, rtol 1e-10);
-3e. where an RC step's time goes: the iteration kernel against its
-   measurement variants (the arithmetic alone, a copy with the step's
-   loads and stores, the step without its serial phases, the ring at
-   depth 0) and the loop kernel with no step (the slab copy its first
-   step folds in), each with its share of the bytes bound; see
-   :func:`phase_iteration_variants`;
 3c. the opacity plane's kernels against their twins: the rebin kernel on
    a device-resident 64-row x 2e6-sample float32 slab into the run's 500
    bins, against the float64 twin (rtol 1e-6 plus 1e-6 of the largest
@@ -68,9 +56,7 @@ Phases, one report line each, any failure raising (non-zero exit):
    eight species on a 28 x 23 grid; float32, some float64 too), each
    with repeated launches identical, outside points exactly sigma and
    its plan held against the plan's twin; the kappa kernel's time in 10
-   rounds of 20 calls, the sha256 of its output and its measurement
-   variants (the plan alone, write-only, staging only, the first
-   version's gather from L2, the plan's torch twin); each kernel's time
+   rounds of 20 calls and the sha256 of its output; each kernel's time
    against its twin's, and the TPU kernels' own one-hot products timed
    as one ``torch.matmul`` each (their ``library_ms``);
 4. goldens: ``Grid(planet)`` with no device named (it lands on the
@@ -218,17 +204,16 @@ def check_close(name, got, ref, rtol, atol):
 
 def ptxas_summary(report):
     """One line per kernel instantiation from ``nvcc -Xptxas -v``:
-    registers and spills, named as ``emit<float, NPT=2, mode 0>`` or
-    ``kappa_lookup<float, mode 0, 16-byte>``."""
+    registers, barriers, shared and constant memory, and spills, named as
+    ``emit<float, NPT=2, dtaus>`` or ``kappa_lookup<float, 16-byte>``."""
     out, kern, spill = [], None, ""
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '.*?"
                       r"((?:emit|absorb|iteration|loop|rebin|kappa|table)"
                       r"(?:_[a-z]+)?)_kernel(?:I([fd]))?"
-                      r"(?:Li(\d+)E)?(?:L[ib](\d+)E)?", line)
+                      r"(?:Li(\d+)E)?(?:Lb(\d)E)?", line)
         if m and m[1].startswith("kappa"):
             args = ([{"f": "float", "d": "double"}[m[2]]] if m[2] else []) \
-                + ([f"mode {m[3]}"] if m[3] else []) \
                 + ([{"1": "16-byte", "0": "element-wise"}[m[4]]]
                    if m[4] else [])
             kern = m[1] + (f"<{', '.join(args)}>" if args else "")
@@ -237,12 +222,12 @@ def ptxas_summary(report):
         elif m:
             kern = (f"{m[1]}<{'float' if m[2] == 'f' else 'double'}"
                     + (f", NPT={m[3]}" if m[3] else "")
-                    + (f", mode {m[4]}" if m[4] else "") + ">")
+                    + (", dtaus" if m[4] == "1" else "") + ">")
         elif "spill" in line:
             spill = line.strip()
         elif "registers" in line and kern:
-            regs = re.search(r"Used (\d+) registers", line)
-            out.append(f"{kern}: {regs[1]} registers; {spill}")
+            used = line.split("Used ", 1)[-1].strip()
+            out.append(f"{kern}: {used}; {spill}")
             kern = None
     return out or [ln.strip() for ln in report.splitlines()
                    if "registers" in ln or "spill" in ln]
@@ -479,52 +464,6 @@ def bound(bytes_, flops):
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
-def phase_sweep_variants():
-    """Where a sweep's time goes, float32 at the headline shape on the
-    main path's inputs (no column frozen): the kernel against its
-    variants (csrc/sweep.cu): without the quadratures, the arithmetic
-    alone, a copy with the same loads and stores, the ring at depth 0
-    (every load in its own layer), the ring filled by TMA bulk copies,
-    and a persistent grid.  The TMA and persistent variants compute the
-    whole sweep and must give its bits.  Returns {direction: {label: ms}}."""
-    from frei_tpu_torch.ops import sweep_cuda as S
-    grid = make_grid(torch.float32)
-    T, Fu, Fd, kaps, done, params = sweep_inputs(grid, N_COLUMNS)
-    sc = S.make_sweep_consts(grid._consts, params)
-    live = torch.zeros_like(done)
-    K = kaps["fused"][0].shape[-1]
-    cases = [("sweep", "fused", {}), ("sweep", "materialized", {}),
-             ("no_sums", "fused", {}), ("arith", "fused", {}),
-             ("copy", "fused", {}), ("copy", "materialized", {}),
-             ("copy", "fused", {"depth": 0}), ("sweep", "fused", {"depth": 0}),
-             ("tma", "fused", {}), ("tma", "materialized", {}),
-             ("persistent", "fused", {})]
-    out = {}
-    for direction in ("emit", "absorb"):
-        out[direction] = {}
-        for variant, form, kw in cases:
-            kap = kaps[form]
-            tb = sweep_bytes(direction, kap, Fu) / PEAK_BYTES * 1e3
-
-            def run(variant=variant, kap=kap, kw=kw):
-                return S.sweep_variant(direction, variant, T, Fu, Fd, kap, sc,
-                                       live, **kw)
-            if variant in ("tma", "persistent"):
-                got, want = run(), run("sweep")
-                assert all(torch.equal(x, y) for x, y in zip(got, want)), \
-                    f"{direction} {variant} {form} differs from the sweep"
-            plan = S.plan_sweep(N_BINS, N_LAYERS, K, 4, form == "fused",
-                                **kw)
-            ms = time_ms(run, 10)
-            label = f"{variant} {form}" + "".join(
-                f" {k}={v}" for k, v in kw.items())
-            out[direction][label] = ms
-            log(f"[variants] {direction:6s} {label:28s} {ms:.4f} ms, "
-                f"{tb / ms:.3f} of the bytes bound ({tb:.4f} ms); plan "
-                f"{plan._asdict()}")
-    return out
-
-
 def population_draws(n, seed=1):
     """bench.py's population leg (`bench.py:174-178`): a/R* U(4, 9), g
     U(10, 50) m s^-2, T* U(4500, 6300) K, alpha U(0.8, 1.5), from
@@ -631,59 +570,6 @@ def phase_population_sweeps():
             f"shared planet {', '.join(f'{x:.4f}' for x in times['shared'])}"
             f" ms (B={N_COLUMNS}, float32, in turns S, P, P, S)")
     return out
-
-
-def sweep_digest():
-    """sha256 of the sweep kernels' outputs on phase 3's float32 inputs
-    (fused and materialized opacity, every third column frozen): equal
-    digests on two checkouts mean bit-identical sweeps."""
-    import hashlib
-    from frei_tpu_torch.ops import sweep_cuda as S
-    grid = make_grid(torch.float32)
-    T, Fu, Fd, kaps, done, params = sweep_inputs(grid, N_COLUMNS)
-    sc = S.make_sweep_consts(grid._consts, params)
-    h = hashlib.sha256()
-    for wrap in (S.emit_kernel, S.absorb_kernel):
-        for kap in kaps.values():
-            for t in wrap(T, Fu, Fd, kap, sc, done):
-                h.update(t.cpu().numpy().tobytes())
-    return h.hexdigest()
-
-
-def ab_leg(kappa_only=False):
-    """One leg of a parent/change comparison, on whatever checkout holds
-    this file: each sweep kernel's time (phase 3's float32 timing) and a
-    digest of its outputs, the whole-iteration kernels' times (one RC
-    step, one 20-iteration loop), the headline on the "loop",
-    "iteration" and "cuda" engines, and the kappa lookup's float32
-    headline (:func:`kappa_times`: rounds of calls and the output's
-    sha256); with ``kappa_only`` the kappa lookup alone.  Calls only
-    wrappers every checkout of the port has.  Prints one JSON line."""
-    from frei_tpu_torch.ops import iteration_cuda as IC
-    from frei_tpu_torch.ops import kappa_cuda as KC
-    from frei_tpu_torch.ops import sweep_cuda as S
-    root = str(Path(__file__).resolve().parent.name)
-    if kappa_only:
-        KC.build()
-        ms, digest = kappa_times()
-        print(json.dumps({"ab_leg": {"root": root, "kappa_ms": ms,
-                                     "kappa_sha256": digest}}), flush=True)
-        return
-    with ThreadPoolExecutor(3) as pool:
-        list(pool.map(lambda m: m.build(), (S, IC, KC)))
-    recs = phase_parity(torch.float32, N_COLUMNS, 1e-4, 1e-5, 1e-7,
-                        timing=True)
-    whole = whole_times(plain=False)
-    head = phase_headline(("loop", "iteration", "cuda"), runs=5)
-    kappa_ms, kappa_digest = kappa_times()
-    print(json.dumps({"ab_leg": {
-        "root": root,
-        "ms": {k: r["ms_fused"] for k, r in recs.items()},
-        "ms_materialized": {k: r["ms_materialized"] for k, r in recs.items()},
-        "sweep_sha256": sweep_digest(),
-        "whole_ms": {k: r["ms"] for k, r in whole.items()},
-        "walls": {e: h["walls"] for e, h in head.items()},
-        "kappa_ms": kappa_ms, "kappa_sha256": kappa_digest}}), flush=True)
 
 
 def hold_temps(label, got, ref, dT_ref, num_got, num_ref, t_rtol):
@@ -793,8 +679,7 @@ def whole_times(plain):
     no column frozen: one RC step of ``rc_iteration_kernel`` on phase 3's
     random states, and a 20-iteration ``rc_loop_kernel`` from the
     solver's state (bench.py's columns, zero fluxes); with ``plain``
-    their twins' too.  Calls only wrappers every checkout of the port
-    has.  Returns {kernel: {"ms", "bytes"[, "plain_ms"]}}."""
+    their twins' too.  Returns {kernel: {"ms", "bytes"[, "plain_ms"]}}."""
     from frei_tpu_torch.ops import iteration_cuda as IC
     grid = make_grid(torch.float32)
     T, Fu, Fd, done, pack, params = iteration_inputs(grid, N_COLUMNS)
@@ -824,45 +709,6 @@ def whole_times(plain):
         + f" per {N_ITERS}-iteration loop (B={N_COLUMNS}, L={N_LAYERS}, "
         f"W={N_BINS}, float32)")
     return {"iteration": it, "loop": loop}
-
-
-def phase_iteration_variants():
-    """Where an RC step's time goes, float32 at the headline shape on the
-    main path's inputs (no column frozen): the iteration kernel against
-    its variants (csrc/iteration.cu): the arithmetic, quadratures and
-    serial phases alone, a copy with the step's loads and stores, the step
-    without its serial phases, and the ring at depth 0; then the loop
-    kernel with no step, the slab copy its first step folds in.  The
-    "step" variant must give the wrapper's bits.  Returns {label: ms}."""
-    from frei_tpu_torch.ops import iteration_cuda as IC
-    grid = make_grid(torch.float32)
-    T, Fu, Fd, done, pack, params = iteration_inputs(grid, N_COLUMNS)
-    scal = scalars(params)
-    live = torch.zeros_like(done)
-    S_ = pack.k_tab.shape[1]
-    tb = rc_bytes(Fu, pack, 1) / PEAK_BYTES * 1e3
-    got = IC.rc_iteration_variant("step", T, Fu, Fd, live, pack, scal)
-    want = IC.rc_iteration_kernel(T, Fu, Fd, live, pack, scal)
-    assert all(torch.equal(x, y) for x, y in zip(got, want)), \
-        "the step variant differs from the iteration kernel"
-    del got, want
-    out = {}
-    for variant, kw in (("step", {}), ("arith", {}), ("copy", {}),
-                        ("no_serial", {}), ("step", {"depth": 0}),
-                        ("copy", {"depth": 0})):
-        ms = time_ms(lambda v=variant, kw=kw: IC.rc_iteration_variant(
-            v, T, Fu, Fd, live, pack, scal, **kw), 10)
-        label = variant + "".join(f" {k}={v}" for k, v in kw.items())
-        plan = IC.plan_iteration(N_BINS, N_LAYERS, S_, 4, **kw)
-        out[label] = ms
-        log(f"[variants] iteration {label:12s} {ms:.4f} ms, {tb / ms:.3f} "
-            f"of the bytes bound ({tb:.4f} ms); plan {plan._asdict()}")
-    Fz = torch.zeros_like(Fu)
-    ms = time_ms(lambda: IC.rc_loop_kernel(T, Fz, Fz, pack, scal, 0, 10 ** 6,
-                                           0.0), 10)
-    out["loop n_timesteps=0"] = ms
-    log(f"[variants] loop with no step (the slab copy): {ms:.4f} ms")
-    return out
 
 
 def phase_iteration_parity():
@@ -1453,7 +1299,7 @@ def phase_opacity_parity(edges_um):
         f"float32 samples -> {plan.n_bins} bins, device-resident)")
     del rows
 
-    # the kappa kernel: every case, its plan, times and variants
+    # the kappa kernel: every case, its plan and times
     rec["kappa"] = phase_kappa()
     return rec
 
@@ -1571,10 +1417,9 @@ def hold_kappa_plan(label, plan, ref):
 
 def kappa_times(rounds=KAPPA_ROUNDS):
     """The float32 headline lookup (8192 x 30 points x 500 bins, 2
-    species) through ``kappa_kernel``, which every checkout of the port
-    has: ``rounds`` means of ``KAPPA_CALLS`` calls each, by CUDA events,
-    and the sha256 of its output."""
-    import hashlib
+    species) through ``kappa_kernel``: ``rounds`` means of
+    ``KAPPA_CALLS`` calls each, by CUDA events, and the sha256 of its
+    output."""
     from frei_tpu_torch.ops import kappa_cuda as KC
     args = opacity_inputs(torch.float32, N_COLUMNS)
     ms = [time_ms(lambda: KC.kappa_kernel(*args), KAPPA_CALLS)
@@ -1590,10 +1435,9 @@ def phase_kappa():
     8192, and each of :func:`kappa_case` in float32, some in float64 too):
     float64 rtol 1e-10, float32 rtol 1e-5 plus 1e-7 of the largest value,
     repeated launches identical, points outside the hull exactly sigma;
-    the CUDA plan against its twin (:func:`hold_kappa_plan`); then at the
-    float32 headline the kernel's time in rounds, its variants (the plan
-    alone, write-only, staging only, the first version's gather), the
-    plan's torch twin, the plain twin and one library call.  Returns the
+    the CUDA plan, as the lookup's launch leaves it, against its twin
+    (:func:`hold_kappa_plan`); then at the float32 headline the kernel's
+    time in rounds, the plain twin's and one library call's.  Returns the
     kernel's record."""
     from frei_tpu_torch.ops import kappa_cuda as KC
     rec = {"max_abs_err": 0.0, "err_over_tol": 0.0}
@@ -1619,7 +1463,7 @@ def phase_kappa():
             f"{label}: repeated launches differ"
         ref, _ = KC.kappa_plain(*args)
         plan_ref = KC.kappa_plan_plain(stack, T, P)
-        hold_kappa_plan(label, KC.kappa_variant("plan", *args)[1], plan_ref)
+        hold_kappa_plan(label, KC._launch(*args)[1], plan_ref)
         out = (plan_ref.key == nT * nP).reshape(got.shape[:-1])
         assert (got[out] == sig).all() and (ref[out] == sig).all(), \
             f"{label}: a point outside the hull is not sigma"
@@ -1638,7 +1482,7 @@ def phase_kappa():
             f"its twin")
         del got, ref
 
-    # the float32 headline: times in rounds, variants, twins
+    # the float32 headline: times in rounds, the twin, one library call
     ms, digest = kappa_times()
     rec["ms"] = float(np.median(ms))
     rec["ms_rounds"] = ms
@@ -1654,29 +1498,12 @@ def phase_kappa():
                     + T.numel() * N_BINS * T.element_size())
     rec["flops"] = (10 * S_ + 1) * T.numel() * N_BINS
     rec["library_ms"] = kappa_library_ms(stack, T, P)
-    tb = rec["bytes"] / PEAK_BYTES * 1e3
-    lookup, _ = KC.kappa_variant("lookup", *args)
-    gather, _ = KC.kappa_variant("gather", *args)
-    torch.cuda.synchronize()
-    same = torch.equal(lookup, gather)
-    del lookup, gather
-    variants = {v: time_ms(lambda v=v: KC.kappa_variant(v, *args),
-                           KAPPA_CALLS)
-                for v in ("lookup", "plan", "write", "stage", "gather")}
-    variants["torch plan"] = time_ms(
-        lambda: KC.kappa_plan_plain(stack, T, P), 5)
-    rec["variants"] = variants
     log(f"[timing] kappa kernel (wrapper) {KAPPA_ROUNDS} rounds of "
         f"{KAPPA_CALLS} calls: min {min(ms):.4f} median {rec['ms']:.4f} "
         f"max {max(ms):.4f} ms ({', '.join(f'{x:.4f}' for x in ms)}); "
         f"plain twin {rec['plain_ms']:.4f} ms, one-hot torch.matmul "
         f"{rec['library_ms']:.4f} ms ({N_COLUMNS} x {N_LAYERS} points x "
         f"{N_BINS} bins, {S_} species, float32); output sha256 {digest}")
-    for v, x in variants.items():
-        log(f"[variants] kappa {v:10s} {x:.4f} ms, {tb / x:.3f} of the "
-            f"bytes bound ({tb:.4f} ms)")
-    log(f"[variants] kappa lookup and the first version's gather give the "
-        f"same bits: {same}")
     return rec
 
 
@@ -2485,33 +2312,26 @@ def main(argv):
         f"{torch.version.cuda}; TF32 off for matmul and cuDNN")
     log(smi)
 
-    if argv in (["--ab-leg"], ["--ab-leg", "kappa"]):
-        ab_leg(kappa_only=argv[1:] == ["kappa"])
-        return
     if argv == ["--kappa"]:
-        # the kappa kernel alone: build, every case, its plan, times and
-        # variants
+        # the kappa kernel alone: build, every case, its plan and times
         log("\n".join(f"[build] {line}"
                       for line in ptxas_summary(KC.build())))
         phase_kappa()
         return
     if argv == ["--sweeps"]:
-        # the sweep kernels alone: build, parity, times and variants
+        # the sweep kernels alone: build, parity and times
         log("\n".join(f"[build] {line}" for line in ptxas_summary(S.build())))
         phase_parity(torch.float64, PARITY64_COLUMNS, 1e-10, 1e-10, 1e-13,
                      timing=False)
         phase_parity(torch.float32, N_COLUMNS, 1e-4, 1e-5, 1e-7,
                      timing=True)
-        phase_sweep_variants()
         phase_population_sweeps()
         return
     if argv == ["--iteration"]:
-        # the whole-iteration kernels alone: build, parity, times and
-        # variants
+        # the whole-iteration kernels alone: build, parity and times
         log("\n".join(f"[build] {line}"
                       for line in ptxas_summary(IC.build() + CH.build())))
         phase_iteration_parity()
-        phase_iteration_variants()
         phase_iteration_chemistry()
         return
     if argv == ["--differentiable"]:
@@ -2554,8 +2374,6 @@ def main(argv):
                  timing=False)
     recs = phase_parity(torch.float32, N_COLUMNS, 1e-4, 1e-5, 1e-7,
                         timing=True)
-    # phase 3d: where a sweep's time goes (the kernel's variants)
-    phase_sweep_variants()
     # phase 3f: the sweep kernels with per-column constants (population)
     pop_ms = phase_population_sweeps()
 
@@ -2563,8 +2381,6 @@ def main(argv):
     # mock chemistry's tables and on equilibrium tables (nTc = 64)
     whole = phase_iteration_parity()
     chem_build_3b, whole_chem = phase_iteration_chemistry()
-    # phase 3e: where an RC step's time goes (the kernel's variants)
-    phase_iteration_variants()
     # phase 3c: the opacity plane's kernels against their twins
     opac = phase_opacity_parity(make_grid(torch.float32).wl_bins)
 
@@ -2665,8 +2481,7 @@ def main(argv):
             ("rebin", "resort_rebin", "rebin.cu",
              "frei_tpu/ops/rebin_pallas.py:47")):
         rows.append((name_, src, replaces, etl["launches"][name_], opac[k],
-                     {x: opac[k][x] for x in ("ms_rounds", "variants")
-                      if x in opac[k]}))
+                     {x: opac[k][x] for x in ("ms_rounds",) if x in opac[k]}))
     # the table kernel replaces no TPU kernel; it is bound by its chain
     rows.append(("chemistry_table", "chemistry.cu", "none (XLA build)",
                  chem_table["launches"], chem_table,

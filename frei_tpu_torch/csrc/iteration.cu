@@ -35,13 +35,13 @@
 // element of each swept layer costs two expm1, one rsqrt and four IEEE
 // divisions (the couplers of twostream.cuh, shared with sweep.cu).  At
 // 8192 columns x 30 layers x 500 bins in float32, measured on an NVIDIA
-// H100 80GB HBM3 at 700 W (PERF.md §5-6, this file's variants): the
-// arithmetic, quadratures and serial phases alone take 1.43 ms per step,
-// the step's loads and stores alone 1.09-1.18 ms, the step 2.60-2.64 ms
-// (0.17 of the 0.45 ms bytes bound); its serial phases cost 0.05 ms and
-// loading one layer ahead 0.08-0.18 ms.  The loop kernel runs the same
-// step in 256-thread blocks of 2 wavelengths: 54.3-54.7 ms per 20
-// iterations.
+// H100 80GB HBM3 at 700 W: the arithmetic, quadratures and serial phases
+// alone took 1.43 ms per step, the step's loads and stores alone
+// 1.09-1.18 ms, the step 2.60-2.64 ms (0.17 of the 0.45 ms bytes bound);
+// its serial phases cost 0.05 ms and loading one layer ahead 0.08-0.18
+// ms.  The split was measured with variants of the iteration kernel that
+// git keeps at commit 47e7c79.  The loop kernel runs the same step in
+// 256-thread blocks of 2 wavelengths: 54.3-54.7 ms per 20 iterations.
 //
 // What the design does about it (the sweep kernels' layout, sweep.cu):
 //   * One block owns one column; each thread owns NPT contiguous
@@ -115,28 +115,6 @@ namespace {
 
 using namespace frei;
 
-// Kernel variants of the iteration kernel.  The solver launches only
-// kStep; the others exist to measure where a step's time goes
-// (chip_smoke.py phase 3e) and are built for float32 at NPT 4.
-constexpr int kStep = 0;      // the RC step
-constexpr int kArith = 1;     // the arithmetic, quadratures and serial phases
-                              // alone: no ring, no slab or table loads, no
-                              // slab stores (fixed opacity)
-constexpr int kCopy = 2;      // the step's loads and stores (ring, table rows,
-                              // slabs) with its weights, without the coupler
-                              // arithmetic, quadratures and temperature updates
-constexpr int kNoSerial = 4;  // the step without its serial phases: weights
-                              // set without search or exp, no temperature
-                              // updates
-
-template <int M> __host__ __device__ constexpr bool has_memory() { return M != kArith; }
-template <int M> __host__ __device__ constexpr bool has_math() { return M != kCopy; }
-template <int M> __host__ __device__ constexpr bool has_sums() { return M != kCopy; }
-template <int M> __host__ __device__ constexpr bool has_weights() { return M != kNoSerial; }
-template <int M> __host__ __device__ constexpr bool has_update() {
-  return M == kStep || M == kArith;
-}
-
 // Threads per block.  The iteration kernel: at most 128 up to 4
 // wavelengths per thread (W <= 512), 256 at 8 (W <= 2048), as the sweeps.
 // The loop kernel: at most 256 (2 wavelengths per thread at W = 500).
@@ -192,7 +170,10 @@ struct IterArgs {
   int depth;    // ring depth: 0 (one slot) or 1 (two slots, one layer ahead)
   int rows;     // rows per ring slot: the flux row, then 2 per staged species
   int smem;     // dynamic shared-memory bytes
-  int mode;     // kernel variant (iteration kernel only)
+  // Unused.  The slot keeps the struct's layout: without it ptxas
+  // allocated five of the kernels' instantiations differently, and
+  // iteration_kernel<float, 4> spilled and ran 10% slower on an H100.
+  int reserved;
   // set by the launcher
   int wpad;     // ring row length: threads x NPT
   int whole;    // rows of W values are whole pieces: move them piecewise
@@ -337,9 +318,8 @@ __device__ __forceinline__ int lower_index(const T* c, int n, T x) {
 }
 
 // Weights, mixing ratios and 1/T of every layer at the temperatures
-// `temps` (shared); the caller's barrier publishes them.  kNoSerial sets
-// them without the search and the exps.
-template <typename T, int MODE>
+// `temps` (shared); the caller's barrier publishes them.
+template <typename T>
 __device__ __forceinline__ void build_weights(const IterArgs& a, const Smem<T>& sm,
                                               const T* temps) {
   const T* ktg = static_cast<const T*>(a.k_tgrid);
@@ -352,13 +332,6 @@ __device__ __forceinline__ void build_weights(const IterArgs& a, const Smem<T>& 
   for (int l = threadIdx.x; l < a.L; l += blockDim.x) {
     const T x = temps[l];
     sm.inv[l] = T(1) / x;
-    if constexpr (!has_weights<MODE>()) {
-      sm.kidx[l] = 0;
-      sm.wlo[l] = T(1);
-      sm.whi[l] = T(0);
-      for (int s = 0; s < S; ++s) sm.mmr[l * S + s] = T(1);
-      continue;
-    }
     const int i = lower_index<T>(ktg, nT, x);
     const T f = (x - ktg[i]) / (ktg[i + 1] - ktg[i]);
     const T ok = (x >= lo && x <= hi) ? T(1) : T(0);
@@ -511,12 +484,10 @@ __device__ __forceinline__ void layer_kappa(const IterArgs& a, const Smem<T>& sm
 // row 0 copied through where they differ, the F_up rows 2 .. L-2 that the
 // absorb reads, and F_down row L-1 (all of them only for a live column).
 // Returns F_down row L-1 in `carry` and the block quadratures in sm.sums.
-template <typename T, int NPT, int MODE>
+template <typename T, int NPT>
 __device__ __forceinline__ void emit_pass(const IterArgs& a, const Smem<T>& sm,
                                           const Rows<T, NPT>& r, const T* Fu, const T* Fd,
                                           T* Fuo, T* Fdo, bool frozen, T carry[NPT]) {
-  constexpr bool kMem = has_memory<MODE>(), kMath = has_math<MODE>();
-  constexpr bool kSums = has_sums<MODE>();
   const int L = a.L, W = a.W, n = L - 1, w0 = r.w0;
   const bool whole = a.whole != 0;
   const T* ftoa = static_cast<const T*>(a.f_toa);
@@ -526,19 +497,14 @@ __device__ __forceinline__ void emit_pass(const IterArgs& a, const Smem<T>& sm,
   auto stage_step = [&](T* slot, int i) {
     stage_layer<T, NPT>(a, sm, slot, i + 1 < n ? Fd + (size_t)(i + 2) * W : ftoa, i + 1, w0);
   };
-  if (kMem && ring.depth != 0) stage_step(ring.slot(0), 0);
+  if (ring.depth != 0) stage_step(ring.slot(0), 0);
 
   T z[NPT], B1[NPT];
-  if constexpr (kMem) {
-    ld_row<T, NPT>(Fu + W, w0, W, whole, z);  // F_1_up carry
-    if (Fuo != Fu) {                          // row 0 is copied through
-      T row0[NPT];
-      ld_row<T, NPT>(Fu, w0, W, whole, row0);
-      write_row<T, NPT>(Fuo, w0, W, whole, row0);
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < NPT; ++j) z[j] = T(0);
+  ld_row<T, NPT>(Fu + W, w0, W, whole, z);  // F_1_up carry
+  if (Fuo != Fu) {                          // row 0 is copied through
+    T row0[NPT];
+    ld_row<T, NPT>(Fu, w0, W, whole, row0);
+    write_row<T, NPT>(Fuo, w0, W, whole, row0);
   }
   const T inv1 = sm.inv[1];
   T q = T(0);
@@ -547,10 +513,9 @@ __device__ __forceinline__ void emit_pass(const IterArgs& a, const Smem<T>& sm,
     B1[j] = T(0);
     if (!r.ok[j]) continue;
     B1[j] = r.c1[j] / expm1_t<T>(r.xr[j] * inv1);
-    if (!kMem) z[j] = B1[j];
     q += z[j] * r.tw[j];
   }
-  if (kSums) warp_partial(q, sm.part, 3 * n);  // incoming F_up of layer 1
+  warp_partial(q, sm.part, 3 * n);  // incoming F_up of layer 1
 
   // one swept layer; the top one (T2 = T[-1]: B2 = B1, incoming F_TOA,
   // outgoing F_up not stored) is a compile-time case, peeled off the loop
@@ -558,18 +523,10 @@ __device__ __forceinline__ void emit_pass(const IterArgs& a, const Smem<T>& sm,
     constexpr bool top = decltype(top_case)::value;
     const int l = i + 1;
     T kk[NPT], f2[NPT];
-    if constexpr (kMem) {
-      ring_step(ring, i, n, stage_step, [&](const T* slot) {
-        read_row<T, NPT>(slot, w0, f2);
-        layer_kappa<T, NPT>(a, sm, slot, l, w0, r.ok, r.sg, kk);
-      });
-    } else {
-#pragma unroll
-      for (int j = 0; j < NPT; ++j) {
-        f2[j] = B1[j];
-        kk[j] = T(2) * r.sg[j];
-      }
-    }
+    ring_step(ring, i, n, stage_step, [&](const T* slot) {
+      read_row<T, NPT>(slot, w0, f2);
+      layer_kappa<T, NPT>(a, sm, slot, l, w0, r.ok, r.sg, kk);
+    });
     const T dt = sm.dtfe[i];
     const T inv2 = top ? T(0) : sm.inv[l + 1];
     T dn[NPT];
@@ -580,27 +537,20 @@ __device__ __forceinline__ void emit_pass(const IterArgs& a, const Smem<T>& sm,
       if (!r.ok[j]) continue;  // past W: nothing stored or summed
       const T F2d = f2[j];
       const T u = z[j];
-      if constexpr (!kMath) {
-        z[j] = kk[j] * dt + F2d;
-        dn[j] = u + kk[j];
-      } else {
-        const T dtau = kk[j] * dt;
-        const T om = r.sg[j] / (r.sg[j] + kk[j]);
-        const T B2 = top ? B1[j] : r.c1[j] / expm1_t<T>(r.xr[j] * inv2);
-        const Couplers<T> cp = couplers_g0<T>(dtau, om, B1[j], B2);
-        z[j] = cp.a * u + (-cp.b * F2d + cp.s_up);
-        dn[j] = cp.a * F2d - cp.b * u + cp.s_down;
-        B1[j] = B2;
-      }
-      if (kSums) {
-        q0 += z[j] * r.tw[j];
-        q1 += F2d * r.tw[j];
-        q2 += dn[j] * r.tw[j];
-      }
+      const T dtau = kk[j] * dt;
+      const T om = r.sg[j] / (r.sg[j] + kk[j]);
+      const T B2 = top ? B1[j] : r.c1[j] / expm1_t<T>(r.xr[j] * inv2);
+      const Couplers<T> cp = couplers_g0<T>(dtau, om, B1[j], B2);
+      z[j] = cp.a * u + (-cp.b * F2d + cp.s_up);
+      dn[j] = cp.a * F2d - cp.b * u + cp.s_down;
+      B1[j] = B2;
+      q0 += z[j] * r.tw[j];
+      q1 += F2d * r.tw[j];
+      q2 += dn[j] * r.tw[j];
     }
     // the absorb overwrites F_down rows 0 .. L-2 and F_up rows 1 .. L-1
     // unread: store only the F_up rows it reads and F_down row L-1
-    if (kMem && !frozen) {
+    if (!frozen) {
       if (!top && l + 1 <= L - 2) write_row<T, NPT>(Fuo + (size_t)(l + 1) * W, w0, W, whole, z);
       if (top) write_row<T, NPT>(Fdo + (size_t)l * W, w0, W, whole, dn);
     }
@@ -609,23 +559,21 @@ __device__ __forceinline__ void emit_pass(const IterArgs& a, const Smem<T>& sm,
       for (int j = 0; j < NPT; ++j) carry[j] = dn[j];
     }
     // outgoing F_up, incoming F_down, outgoing F_down
-    if (kSums) warp_partials3(q0, q1, q2, sm.part, i, n + i, 2 * n + i);
+    warp_partials3(q0, q1, q2, sm.part, i, n + i, 2 * n + i);
   };
   for (int i = 0; i < n - 1; ++i) layer(i, std::false_type{});
   layer(n - 1, std::true_type{});
   __syncthreads();
-  if (kSums) {
-    for (int s = threadIdx.x; s < 3 * n + 1; s += blockDim.x) {
-      const T t = slot_total(sm.part, s);
-      const int q = s / n, i = s % n;
-      if (q == 3) {
-        sm.sums[2 * n] = t;                      // incoming F_up of layer 1
-      } else if (q == 0) {
-        sm.sums[i] = t;
-        if (i + 1 < n) sm.sums[2 * n + i + 1] = t;  // next layer's incoming F_up
-      } else {
-        sm.sums[(q == 1 ? 1 : 3) * n + i] = t;
-      }
+  for (int s = threadIdx.x; s < 3 * n + 1; s += blockDim.x) {
+    const T t = slot_total(sm.part, s);
+    const int q = s / n, i = s % n;
+    if (q == 3) {
+      sm.sums[2 * n] = t;                      // incoming F_up of layer 1
+    } else if (q == 0) {
+      sm.sums[i] = t;
+      if (i + 1 < n) sm.sums[2 * n + i + 1] = t;  // next layer's incoming F_up
+    } else {
+      sm.sums[(q == 1 ? 1 : 3) * n + i] = t;
     }
   }
   __syncthreads();
@@ -635,12 +583,10 @@ __device__ __forceinline__ void emit_pass(const IterArgs& a, const Smem<T>& sm,
 // state: F_up rows 2 .. L-2 from (Fuo), rows 0-1 (which the emit leaves)
 // from the source Fu, the carry F_down row L-1 from the emit's registers.
 // A frozen column reads the source's rows and writes them back.
-template <typename T, int NPT, int MODE>
+template <typename T, int NPT>
 __device__ __forceinline__ void absorb_pass(const IterArgs& a, const Smem<T>& sm,
                                             const Rows<T, NPT>& r, const T* Fu, const T* Fd,
                                             T* Fuo, T* Fdo, bool frozen, T d[NPT]) {
-  constexpr bool kMem = has_memory<MODE>(), kMath = has_math<MODE>();
-  constexpr bool kSums = has_sums<MODE>();
   const int L = a.L, W = a.W, n = L - 1, w0 = r.w0;
   const bool whole = a.whole != 0;
   const Ring<T> ring{sm.ring, (size_t)a.rows * a.wpad, a.depth};
@@ -649,8 +595,8 @@ __device__ __forceinline__ void absorb_pass(const IterArgs& a, const Smem<T>& sm
     const int i = n - 1 - k;
     stage_layer<T, NPT>(a, sm, slot, (frozen || i <= 1 ? Fu : Fuo) + (size_t)i * W, i, w0);
   };
-  if (kMem && ring.depth != 0) stage_step(ring.slot(0), 0);
-  if (kMem && frozen) {  // the carry is the old row L-1, written back
+  if (ring.depth != 0) stage_step(ring.slot(0), 0);
+  if (frozen) {  // the carry is the old row L-1, written back
     ld_row<T, NPT>(Fd + (size_t)n * W, w0, W, whole, d);
     write_row<T, NPT>(Fdo + (size_t)n * W, w0, W, whole, d);
   }
@@ -665,23 +611,15 @@ __device__ __forceinline__ void absorb_pass(const IterArgs& a, const Smem<T>& sm
     B2[j] = r.c1[j] / expm1_t<T>(r.xr[j] * invL);
     q2 += d[j] * r.tw[j];
   }
-  if (kSums) warp_partial(q2, sm.part, 3 * n);  // incoming F_down of layer L-2
+  warp_partial(q2, sm.part, 3 * n);  // incoming F_down of layer L-2
 
   for (int k = 0; k < n; ++k) {
     const int i = n - 1 - k;
     T kk[NPT], f1[NPT];
-    if constexpr (kMem) {
-      ring_step(ring, k, n, stage_step, [&](const T* slot) {
-        read_row<T, NPT>(slot, w0, f1);
-        layer_kappa<T, NPT>(a, sm, slot, i, w0, r.ok, r.sg, kk);
-      });
-    } else {
-#pragma unroll
-      for (int j = 0; j < NPT; ++j) {
-        f1[j] = B2[j];
-        kk[j] = T(2) * r.sg[j];
-      }
-    }
+    ring_step(ring, k, n, stage_step, [&](const T* slot) {
+      read_row<T, NPT>(slot, w0, f1);
+      layer_kappa<T, NPT>(a, sm, slot, i, w0, r.ok, r.sg, kk);
+    });
     const T dt = sm.dtfa[i];
     const T inv1 = sm.inv[i];
     T up[NPT];
@@ -693,53 +631,42 @@ __device__ __forceinline__ void absorb_pass(const IterArgs& a, const Smem<T>& sm
       if (!r.ok[j]) continue;  // past W: nothing stored or summed
       const T F1u = f1[j];     // stale upward flux
       const T dold = d[j];
-      if constexpr (!kMath) {
-        d[j] = kk[j] * dt + F1u;
-        up[j] = dold + kk[j];
-      } else {
-        const T dtau = kk[j] * dt;
-        const T om = r.sg[j] / (r.sg[j] + kk[j]);
-        const T B1 = r.c1[j] / expm1_t<T>(r.xr[j] * inv1);
-        const Couplers<T> cp = couplers_g0<T>(dtau, om, B1, B2[j]);
-        d[j] = cp.a * dold + (-cp.b * F1u + cp.s_down);
-        up[j] = cp.a * F1u - cp.b * dold + cp.s_up;
-        B2[j] = B1;
-      }
-      if (kSums) {
-        q0 += up[j] * r.tw[j];
-        q1 += F1u * r.tw[j];
-        q2 += d[j] * r.tw[j];
-      }
+      const T dtau = kk[j] * dt;
+      const T om = r.sg[j] / (r.sg[j] + kk[j]);
+      const T B1 = r.c1[j] / expm1_t<T>(r.xr[j] * inv1);
+      const Couplers<T> cp = couplers_g0<T>(dtau, om, B1, B2[j]);
+      d[j] = cp.a * dold + (-cp.b * F1u + cp.s_down);
+      up[j] = cp.a * F1u - cp.b * dold + cp.s_up;
+      B2[j] = B1;
+      q0 += up[j] * r.tw[j];
+      q1 += F1u * r.tw[j];
+      q2 += d[j] * r.tw[j];
     }
-    if constexpr (kMem) {
-      const size_t r1 = (size_t)i * W, r2 = r1 + W;
-      if (frozen) {  // a frozen column writes its old rows back
-        T old[NPT];
-        ld_row<T, NPT>(Fd + r1, w0, W, whole, old);
-        write_row<T, NPT>(Fdo + r1, w0, W, whole, old);
-        ld_row<T, NPT>(Fu + r2, w0, W, whole, old);
-        write_row<T, NPT>(Fuo + r2, w0, W, whole, old);
-      } else {
-        write_row<T, NPT>(Fdo + r1, w0, W, whole, d);
-        write_row<T, NPT>(Fuo + r2, w0, W, whole, up);
-      }
+    const size_t r1 = (size_t)i * W, r2 = r1 + W;
+    if (frozen) {  // a frozen column writes its old rows back
+      T old[NPT];
+      ld_row<T, NPT>(Fd + r1, w0, W, whole, old);
+      write_row<T, NPT>(Fdo + r1, w0, W, whole, old);
+      ld_row<T, NPT>(Fu + r2, w0, W, whole, old);
+      write_row<T, NPT>(Fuo + r2, w0, W, whole, old);
+    } else {
+      write_row<T, NPT>(Fdo + r1, w0, W, whole, d);
+      write_row<T, NPT>(Fuo + r2, w0, W, whole, up);
     }
     // outgoing F_up, incoming F_up, outgoing F_down
-    if (kSums) warp_partials3(q0, q1, q2, sm.part, i, n + i, 2 * n + i);
+    warp_partials3(q0, q1, q2, sm.part, i, n + i, 2 * n + i);
   }
   __syncthreads();
-  if (kSums) {
-    for (int s = threadIdx.x; s < 3 * n + 1; s += blockDim.x) {
-      const T t = slot_total(sm.part, s);
-      const int q = s / n, i = s % n;
-      if (q == 3) {
-        sm.sums[n + n - 1] = t;                  // incoming F_down of layer L-2
-      } else if (q == 2) {
-        sm.sums[3 * n + i] = t;
-        if (i > 0) sm.sums[n + i - 1] = t;       // next layer's incoming F_down
-      } else {
-        sm.sums[(q == 0 ? 0 : 2) * n + i] = t;
-      }
+  for (int s = threadIdx.x; s < 3 * n + 1; s += blockDim.x) {
+    const T t = slot_total(sm.part, s);
+    const int q = s / n, i = s % n;
+    if (q == 3) {
+      sm.sums[n + n - 1] = t;                  // incoming F_down of layer L-2
+    } else if (q == 2) {
+      sm.sums[3 * n + i] = t;
+      if (i > 0) sm.sums[n + i - 1] = t;       // next layer's incoming F_down
+    } else {
+      sm.sums[(q == 0 ? 0 : 2) * n + i] = t;
     }
   }
   __syncthreads();
@@ -767,11 +694,10 @@ __device__ __forceinline__ Phys<T> phys_of(const IterArgs& a) {
 
 // One RC step from sm.tc: T1 into sm.t1, T2 into sm.t2, dT2 into sm.dt;
 // the quadratures of both sweeps into `sums_out` unless it is null.
-template <typename T, int NPT, int MODE>
+template <typename T, int NPT>
 __device__ __forceinline__ void rc_step(const IterArgs& a, const Smem<T>& sm,
                                         const Rows<T, NPT>& r, const T* Fu, const T* Fd,
                                         T* Fuo, T* Fdo, bool frozen, T* sums_out) {
-  constexpr bool kUpdate = has_update<MODE>();
   const int L = a.L, n = L - 1;
   const T* p1e = static_cast<const T*>(a.p1e);
   const T* p2e = static_cast<const T*>(a.p2e);
@@ -780,13 +706,13 @@ __device__ __forceinline__ void rc_step(const IterArgs& a, const Smem<T>& sm,
   const T* S = sm.sums;
   T carry[NPT];
 
-  build_weights<T, MODE>(a, sm, sm.tc);
+  build_weights<T>(a, sm, sm.tc);
   __syncthreads();
-  emit_pass<T, NPT, MODE>(a, sm, r, Fu, Fd, Fuo, Fdo, frozen, carry);
+  emit_pass<T, NPT>(a, sm, r, Fu, Fd, Fuo, Fdo, frozen, carry);
   store_sums<T>(sm, sums_out, n);
   for (int l = threadIdx.x; l < L; l += blockDim.x) {
     T dT = T(0);
-    if (kUpdate && l > 0) {
+    if (l > 0) {
       const Phys<T> ph = phys_of<T>(a);
       const int i = l - 1;
       const T T2 = l + 1 < L ? sm.tc[l + 1] : sm.tc[L - 1];
@@ -797,13 +723,13 @@ __device__ __forceinline__ void rc_step(const IterArgs& a, const Smem<T>& sm,
   }
   __syncthreads();
 
-  build_weights<T, MODE>(a, sm, sm.t1);
+  build_weights<T>(a, sm, sm.t1);
   __syncthreads();
-  absorb_pass<T, NPT, MODE>(a, sm, r, Fu, Fd, Fuo, Fdo, frozen, carry);
+  absorb_pass<T, NPT>(a, sm, r, Fu, Fd, Fuo, Fdo, frozen, carry);
   store_sums<T>(sm, sums_out ? sums_out + 4 * n : nullptr, n);
   for (int l = threadIdx.x; l < L; l += blockDim.x) {
     T dT = T(0);
-    if (kUpdate && l < n) {
+    if (l < n) {
       const Phys<T> ph = phys_of<T>(a);
       dT = delta_temperature<T>(ph, S[l], S[n + l], S[2 * n + l], S[3 * n + l], sm.t1[l],
                                 sm.t1[l + 1], p1a[l], p2a[l]);
@@ -837,7 +763,7 @@ __device__ __forceinline__ void setup_block(const IterArgs& a, const Smem<T>& sm
 
 // ---- the kernels ------------------------------------------------------
 
-template <typename T, int NPT, int MODE>
+template <typename T, int NPT>
 __global__ void __launch_bounds__(max_threads<NPT, false>(), min_blocks<T, NPT, false>())
     iteration_kernel(IterArgs a) {
   const int L = a.L, W = a.W, b = blockIdx.x;
@@ -849,10 +775,9 @@ __global__ void __launch_bounds__(max_threads<NPT, false>(), min_blocks<T, NPT, 
   setup_block<T>(a, sm, b);
   __syncthreads();
   const bool frozen = a.done != nullptr && a.done[b] != 0;
-  rc_step<T, NPT, MODE>(a, sm, r, static_cast<const T*>(a.F_up) + slab,
-                        static_cast<const T*>(a.F_down) + slab,
-                        static_cast<T*>(a.F_up_out) + slab, static_cast<T*>(a.F_down_out) + slab,
-                        frozen, sums_of<T>(a, b));
+  rc_step<T, NPT>(a, sm, r, static_cast<const T*>(a.F_up) + slab,
+                  static_cast<const T*>(a.F_down) + slab, static_cast<T*>(a.F_up_out) + slab,
+                  static_cast<T*>(a.F_down_out) + slab, frozen, sums_of<T>(a, b));
   T* T1 = static_cast<T*>(a.T1) + (size_t)b * L;
   T* T2 = static_cast<T*>(a.T2) + (size_t)b * L;
   T* dT2 = static_cast<T*>(a.dT2) + (size_t)b * L;
@@ -949,9 +874,9 @@ __global__ void __launch_bounds__(max_threads<NPT, true>(), min_blocks<T, NPT, t
     const size_t slab = (size_t)b * L * W;
     T* Fuo = static_cast<T*>(a.F_up_out) + slab;
     T* Fdo = static_cast<T*>(a.F_down_out) + slab;
-    rc_step<T, NPT, kStep>(a, sm, r, it ? Fuo : static_cast<const T*>(a.F_up) + slab,
-                           it ? Fdo : static_cast<const T*>(a.F_down) + slab, Fuo, Fdo, false,
-                           sums_of<T>(a, b));
+    rc_step<T, NPT>(a, sm, r, it ? Fuo : static_cast<const T*>(a.F_up) + slab,
+                    it ? Fdo : static_cast<const T*>(a.F_down) + slab, Fuo, Fdo, false,
+                    sums_of<T>(a, b));
     // a barrier that also publishes sm.tc; the column stops once every
     // layer has converged (the same value in every thread)
     if (__syncthreads_and(record_step<T>(a, sm, it))) break;
@@ -978,7 +903,7 @@ bool whole_rows(const IterArgs& a) {
   return true;
 }
 
-template <typename T, bool LOOP, int NPT, int MODE>
+template <typename T, bool LOOP, int NPT>
 int run(const IterArgs& a0, size_t shmem, cudaStream_t stream) {
   IterArgs a = a0;
   a.whole = whole_rows<T, NPT>(a) ? 1 : 0;
@@ -986,7 +911,7 @@ int run(const IterArgs& a0, size_t shmem, cudaStream_t stream) {
   if constexpr (LOOP) {
     kern = loop_kernel<T, NPT>;
   } else {
-    kern = iteration_kernel<T, NPT, MODE>;
+    kern = iteration_kernel<T, NPT>;
   }
   if (shmem > 48 * 1024) {
     const cudaError_t e =
@@ -1000,22 +925,12 @@ int run(const IterArgs& a0, size_t shmem, cudaStream_t stream) {
 template <typename T, bool LOOP>
 int by_npt(const IterArgs& a, size_t shmem, cudaStream_t s) {
   switch (a.npt) {
-    case 1: return run<T, LOOP, 1, kStep>(a, shmem, s);
-    case 2: return run<T, LOOP, 2, kStep>(a, shmem, s);
-    case 4: return run<T, LOOP, 4, kStep>(a, shmem, s);
-    case 8: return run<T, LOOP, 8, kStep>(a, shmem, s);
+    case 1: return run<T, LOOP, 1>(a, shmem, s);
+    case 2: return run<T, LOOP, 2>(a, shmem, s);
+    case 4: return run<T, LOOP, 4>(a, shmem, s);
+    case 8: return run<T, LOOP, 8>(a, shmem, s);
     default: return (int)cudaErrorInvalidValue;
   }
-}
-
-// The measurement variants exist for float32 at NPT 4 only (the
-// headline's W = 500 at 128 threads).
-template <typename T, int MODE>
-int variant(const IterArgs& a, size_t shmem, cudaStream_t s) {
-  if constexpr (std::is_same<T, float>::value) {
-    if (a.npt == 4) return run<T, false, 4, MODE>(a, shmem, s);
-  }
-  return (int)cudaErrorInvalidValue;
 }
 
 template <typename T, bool LOOP>
@@ -1025,20 +940,13 @@ int launch(const void* args, void* stream) {
   if (a.L < 3 || a.W < 1 || a.nT < 2 || a.nTc < 2 || a.S < 1 || a.threads < 32 ||
       a.threads % 32 || a.threads > (a.npt <= 4 ? max_threads<4, LOOP>() : max_threads<8, LOOP>()) ||
       (long long)a.threads * a.npt < a.W || a.depth < 0 || a.depth > 1 || a.rows < 1 ||
-      (a.rows - 1) % 2 != 0 || (a.rows - 1) / 2 > a.S || (LOOP && a.mode != kStep))
+      (a.rows - 1) % 2 != 0 || (a.rows - 1) / 2 > a.S)
     return (int)cudaErrorInvalidValue;
   a.wpad = a.threads * a.npt;
   // the caller's plan must agree with this file's layout
   const size_t shmem = layout(a.L, a.S, sizeof(T), a.threads, a.depth, a.rows, a.wpad).total;
   if (shmem != (size_t)a.smem || shmem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (a.mode) {
-    case kStep: return by_npt<T, LOOP>(a, shmem, s);
-    case kArith: return variant<T, kArith>(a, shmem, s);
-    case kCopy: return variant<T, kCopy>(a, shmem, s);
-    case kNoSerial: return variant<T, kNoSerial>(a, shmem, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return by_npt<T, LOOP>(a, shmem, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace

@@ -23,10 +23,12 @@
 // layers of lookup points x 500 bins is a 491.5 MB float32 output, 0.15 ms
 // at 3.35 TB/s.  Read per point, the four corner rows of each species
 // come to 32 bytes of L2 traffic for every 4 bytes written (3.9 GB a
-// call), which is what held the first version of this kernel at a fifth
-// of its bound.  Yet the points fall into at most nT x nP cells, a few
-// hundred points a cell on the run's grid, and all points of a cell read
-// the same corner rows.
+// call), which is what held the first version of this kernel, a gather
+// of every corner from L2 point by point, at a fifth of its bound (0.76-
+// 1.07 ms at 8192 x 30 points x 500 bins in float32 on an NVIDIA H100
+// 80GB HBM3, against 0.24 ms for the design below).  Yet the points fall
+// into at most nT x nP cells, a few hundred points a cell on the run's
+// grid, and all points of a cell read the same corner rows.
 //
 // What the design does about it: a plan, then one lookup pass.
 //   1. `kappa_prelude_kernel`, one thread per point: the axis weights
@@ -57,12 +59,9 @@
 // working type, as the twin sums them; no atomics touch an output value,
 // so repeated launches give identical bits.  W not a multiple of 16 bytes,
 // or a misaligned pointer, takes element-wise copies and stores.
-//
-// Measurement variants share the plan and the launcher (mode argument):
-// write-only (sigma rows through the plan, no table), staging only (the
-// lookup kernel without its arithmetic and stores), the plan alone, and
-// the first version's gather of every corner from L2 per point (after the
-// prelude, in point order, no plan).  The solver never reaches them.
+// The lookup's time was split with measurement variants (the plan alone,
+// write-only, staging only) and held against the first version's gather;
+// git keeps them at commit 47e7c79.
 //
 // Bound to PyTorch through a plain extern "C" launcher loaded with ctypes.
 // It returns the first CUDA error of its launches; it launches on the
@@ -86,14 +85,11 @@ using frei::stage_row;
 constexpr int kThreads = 128;        // lookup kernel, one work item a block
 constexpr int kPlanThreads = 256;    // prelude and scatter, one point a thread
 constexpr int kScanThreads = 1024;   // the scan's one block
-constexpr int kGatherPoints = 8;     // the gather variant: points per block
 constexpr int kCornerBytes = 96 * 1024;  // shared memory for a tile's corner rows
 // buckets that the prelude and the scatter count in shared memory, block
 // by block, before one global atomic per bucket; with more buckets, one
 // global atomic a point
 constexpr int kSharedBuckets = 4096;
-
-enum Mode { kLookup = 0, kWrite = 1, kStage = 2, kPlan = 3, kGather = 4 };
 
 template <typename T> struct Eps;
 template <> struct Eps<float> { static constexpr float value = FLT_EPSILON; };
@@ -336,7 +332,7 @@ __device__ __forceinline__ void blend(T tf, T pf, T m, const T (&v00)[V], const 
 // threadIdx.x - h of the tile, h = 1 where the tile starts halfway into a
 // sector (one thread of the block is spare for it), and each warp's
 // stores start on a sector.
-template <typename T, int kMode, bool kVec>
+template <typename T, bool kVec>
 __global__ void __launch_bounds__(kThreads)
     kappa_lookup_kernel(const T* __restrict__ frac, const T* __restrict__ mmr,
                         const T* __restrict__ tab, const T* __restrict__ sigma,
@@ -370,7 +366,7 @@ __global__ void __launch_bounds__(kThreads)
   const int b = s_bucket;
   if (b < 0) return;  // past the last item
   const int start = s_start, np = s_count;
-  const bool inside = kMode != kWrite && b < M;
+  const bool inside = b < M;
   const size_t plane = (size_t)M * W;  // one species' table
   for (int q = threadIdx.x; q < np; q += kThreads) {
     const int n = order[start + q];
@@ -396,90 +392,50 @@ __global__ void __launch_bounds__(kThreads)
       cp_wait_all();
     }
     __syncthreads();  // the tile's corners and the points' data are in
-    if (kMode != kStage) {
-      T sg[2][V];  // sigma at piece threadIdx.x - h of the tile, h = 0, 1
+    T sg[2][V];  // sigma at piece threadIdx.x - h of the tile, h = 0, 1
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int w = w0 + lw - h * V;
-        if (w >= w0 && w < W) load_piece<T, V, kVec>(sigma + w, min(V, W - w), sg[h]);
-      }
-      for (int q = 0; q < np; ++q) {
-        const int n = ids[q];
-        const int h = paired ? (int)(((size_t)n * W + w0) * sizeof(T) / 16 & 1) : 0;
-        const int lq = lw - h * V, w = w0 + lq;
-        if (lq < 0 || lq >= WT || w >= W) continue;
-        T o[V];
-        if (inside) {
-          const T* d = pts + (size_t)q * (2 + S);
-          T acc[V];
+    for (int h = 0; h < 2; ++h) {
+      const int w = w0 + lw - h * V;
+      if (w >= w0 && w < W) load_piece<T, V, kVec>(sigma + w, min(V, W - w), sg[h]);
+    }
+    for (int q = 0; q < np; ++q) {
+      const int n = ids[q];
+      const int h = paired ? (int)(((size_t)n * W + w0) * sizeof(T) / 16 & 1) : 0;
+      const int lq = lw - h * V, w = w0 + lq;
+      if (lq < 0 || lq >= WT || w >= W) continue;
+      T o[V];
+      if (inside) {
+        const T* d = pts + (size_t)q * (2 + S);
+        T acc[V];
 #pragma unroll
-          for (int v = 0; v < V; ++v) acc[v] = T(0);
-          for (int s = 0; s < S; ++s) {
-            T v00[V], v01[V], v10[V], v11[V];
-            const T* cs = corner + (size_t)4 * s * WT;
-            read_row<T, V>(cs, lq, v00);
-            read_row<T, V>(cs + WT, lq, v01);
-            read_row<T, V>(cs + 2 * WT, lq, v10);
-            read_row<T, V>(cs + 3 * WT, lq, v11);
-            blend<T, V>(d[0], d[1], d[2 + s], v00, v01, v10, v11, acc);
-          }
-#pragma unroll
-          for (int v = 0; v < V; ++v) o[v] = acc[v] + (h ? sg[1][v] : sg[0][v]);
-        } else {
-#pragma unroll
-          for (int v = 0; v < V; ++v) o[v] = T(0) + (h ? sg[1][v] : sg[0][v]);
+        for (int v = 0; v < V; ++v) acc[v] = T(0);
+        for (int s = 0; s < S; ++s) {
+          T v00[V], v01[V], v10[V], v11[V];
+          const T* cs = corner + (size_t)4 * s * WT;
+          read_row<T, V>(cs, lq, v00);
+          read_row<T, V>(cs + WT, lq, v01);
+          read_row<T, V>(cs + 2 * WT, lq, v10);
+          read_row<T, V>(cs + 3 * WT, lq, v11);
+          blend<T, V>(d[0], d[1], d[2 + s], v00, v01, v10, v11, acc);
         }
-        store_piece<T, V, kVec>(out + (size_t)n * W + w, min(V, W - w), o);
+#pragma unroll
+        for (int v = 0; v < V; ++v) o[v] = acc[v] + (h ? sg[1][v] : sg[0][v]);
+      } else {
+#pragma unroll
+        for (int v = 0; v < V; ++v) o[v] = T(0) + (h ? sg[1][v] : sg[0][v]);
       }
+      store_piece<T, V, kVec>(out + (size_t)n * W + w, min(V, W - w), o);
     }
     __syncthreads();  // before the next tile overwrites the corners
   }
 }
 
-// The first version's body, kept as a measurement variant: every corner
-// of every point read from L2, kGatherPoints points a block in turn.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    kappa_gather_kernel(const int* __restrict__ key, const T* __restrict__ frac,
-                        const T* __restrict__ mmr, const T* __restrict__ tab,
-                        const T* __restrict__ sigma, T* __restrict__ out, int N, int S, int nT,
-                        int nP, int W) {
-  const int M = nT * nP;
-  const size_t plane = (size_t)M * W;
-  const int n0 = blockIdx.x * kGatherPoints;
-  for (int p = 0; p < kGatherPoints; ++p) {
-    const int n = n0 + p;
-    if (n >= N) return;
-    T* o = out + (size_t)n * W;
-    const int k = key[n];
-    if (k == M) {
-      for (int w = threadIdx.x; w < W; w += kThreads) o[w] = T(0) + sigma[w];
-      continue;
-    }
-    const int i = k / nP, j = k - i * nP;
-    const int i1 = min(i + 1, nT - 1), j1 = min(j + 1, nP - 1);
-    const size_t c00 = ((size_t)i * nP + j) * W, c01 = ((size_t)i * nP + j1) * W;
-    const size_t c10 = ((size_t)i1 * nP + j) * W, c11 = ((size_t)i1 * nP + j1) * W;
-    const T tf = frac[(size_t)2 * n], pf = frac[(size_t)2 * n + 1];
-    for (int w = threadIdx.x; w < W; w += kThreads) {
-      T acc = T(0);
-      for (int s = 0; s < S; ++s) {
-        const T* Vs = tab + s * plane + w;
-        const T v = (T(1) - tf) * ((T(1) - pf) * Vs[c00] + pf * Vs[c01])
-                    + tf * ((T(1) - pf) * Vs[c10] + pf * Vs[c11]);
-        acc += mmr[(size_t)s * N + n] * v;
-      }
-      o[w] = acc + sigma[w];
-    }
-  }
-}
-
-template <typename T, int kMode, bool kVec>
+template <typename T, bool kVec>
 int launch_lookup(unsigned items, size_t smem, const T* frac, const T* mmr, const T* tab,
                   const T* sigma, const int* off, const int* item_off, const int* order, T* out,
                   int paired, int N, int S, int nT, int nP, int W, int WT, int p_max,
                   cudaStream_t st) {
-  auto kernel = kappa_lookup_kernel<T, kMode, kVec>;
+  auto kernel = kappa_lookup_kernel<T, kVec>;
   if (smem > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -491,12 +447,12 @@ int launch_lookup(unsigned items, size_t smem, const T* frac, const T* mmr, cons
 }
 
 template <typename T>
-int launch(int mode, const void* t_, const void* p_, const void* mmr_, const void* temps_,
+int launch(const void* t_, const void* p_, const void* mmr_, const void* temps_,
            const void* press_, const void* tab_, const void* sigma_, void* frac_, void* scratch,
            void* out_, int64_t N64, int S, int nT, int nP, int W, int p_max, void* stream) {
   constexpr int V = 16 / (int)sizeof(T);
-  if (mode < kLookup || mode > kGather || N64 < 0 || N64 > INT_MAX - 1024 || S < 1 || nT < 2 ||
-      nP < 1 || W < 1 || p_max < 1 || p_max > 1024 || (int64_t)nT * nP > INT_MAX / 4)
+  if (N64 < 0 || N64 > INT_MAX - 1024 || S < 1 || nT < 2 || nP < 1 || W < 1 || p_max < 1 ||
+      p_max > 1024 || (int64_t)nT * nP > INT_MAX / 4)
     return (int)cudaErrorInvalidValue;
   const int N = (int)N64, M = nT * nP;
   // 16-byte pieces where every row is whole pieces; rows 16 bytes past
@@ -534,49 +490,38 @@ int launch(int mode, const void* t_, const void* p_, const void* mmr_, const voi
         nT, nP);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   }
-  if (mode == kGather) {
-    if (N == 0) return 0;
-    kappa_gather_kernel<T><<<(unsigned)((N + kGatherPoints - 1) / kGatherPoints), kThreads, 0,
-                             st>>>(key, frac, mmr, tab, sigma, out, N, S, nT, nP, W);
-    return (int)cudaGetLastError();
-  }
   kappa_scan_kernel<<<1, kScanThreads, 0, st>>>(count, off, item_off, M + 1, p_max);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   if (N == 0) return 0;
   kappa_scatter_kernel<<<point_blocks, kPlanThreads, 2 * hist_bytes, st>>>(key, count, order, N,
                                                                           M + 1);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  if (mode == kPlan) return 0;
   const size_t smem = sizeof(T) * ((size_t)4 * S * WT + (size_t)p_max * (2 + S))
                       + sizeof(int) * (size_t)p_max;
   const unsigned n_items = (unsigned)items;
-#define FREI_LOOKUP(MODE, VEC)                                                                  \
-  launch_lookup<T, MODE, VEC>(n_items, smem, frac, mmr, tab, sigma, off, item_off, order, out, \
-                              paired, N, S, nT, nP, W, WT, p_max, st)
-  if (mode == kLookup) return vec ? FREI_LOOKUP(kLookup, true) : FREI_LOOKUP(kLookup, false);
-  if (mode == kWrite) return vec ? FREI_LOOKUP(kWrite, true) : FREI_LOOKUP(kWrite, false);
-  return vec ? FREI_LOOKUP(kStage, true) : FREI_LOOKUP(kStage, false);
-#undef FREI_LOOKUP
+  return (vec ? launch_lookup<T, true> : launch_lookup<T, false>)(
+      n_items, smem, frac, mmr, tab, sigma, off, item_off, order, out, paired, N, S, nT, nP, W,
+      WT, p_max, st);
 }
 
 }  // namespace
 
-// mode: 0 the lookup, 1 write-only, 2 staging only, 3 the plan alone, 4 the
-// gather variant.  t, p: (N,) lookup points; mmr: (S, N); temps (nT,),
-// press (nP,), tab (S, nT, nP, W), sigma (W,); frac: (N, 2) scratch of the
-// working type; scratch: 2 N + 3 M + 5 int32; out: (N, W).
-extern "C" int frei_kappa_f32(int mode, const void* t, const void* p, const void* mmr,
-                              const void* temps, const void* press, const void* tab,
-                              const void* sigma, void* frac, void* scratch, void* out, int64_t N,
-                              int S, int nT, int nP, int W, int p_max, void* stream) {
-  return launch<float>(mode, t, p, mmr, temps, press, tab, sigma, frac, scratch, out, N, S, nT,
-                       nP, W, p_max, stream);
+// t, p: (N,) lookup points; mmr: (S, N); temps (nT,), press (nP,), tab
+// (S, nT, nP, W), sigma (W,); frac: (N, 2) scratch of the working type;
+// scratch: 2 N + 3 M + 5 int32, left holding the plan (key, order, counts,
+// offsets, work-item offsets); out: (N, W).
+extern "C" int frei_kappa_f32(const void* t, const void* p, const void* mmr, const void* temps,
+                              const void* press, const void* tab, const void* sigma, void* frac,
+                              void* scratch, void* out, int64_t N, int S, int nT, int nP, int W,
+                              int p_max, void* stream) {
+  return launch<float>(t, p, mmr, temps, press, tab, sigma, frac, scratch, out, N, S, nT, nP, W,
+                       p_max, stream);
 }
 
-extern "C" int frei_kappa_f64(int mode, const void* t, const void* p, const void* mmr,
-                              const void* temps, const void* press, const void* tab,
-                              const void* sigma, void* frac, void* scratch, void* out, int64_t N,
-                              int S, int nT, int nP, int W, int p_max, void* stream) {
-  return launch<double>(mode, t, p, mmr, temps, press, tab, sigma, frac, scratch, out, N, S, nT,
-                        nP, W, p_max, stream);
+extern "C" int frei_kappa_f64(const void* t, const void* p, const void* mmr, const void* temps,
+                              const void* press, const void* tab, const void* sigma, void* frac,
+                              void* scratch, void* out, int64_t N, int S, int nT, int nP, int W,
+                              int p_max, void* stream) {
+  return launch<double>(t, p, mmr, temps, press, tab, sigma, frac, scratch, out, N, S, nT, nP, W,
+                        p_max, stream);
 }

@@ -26,13 +26,14 @@
 // and writes both updated slabs, ~1.5 GB, 0.456 ms at 3.35 TB/s.  By
 // instructions it is close: each element of each layer costs two expm1,
 // one rsqrt and four IEEE divisions with their slow-path guards, and the
-// arithmetic alone (variant kArith) takes 0.73-0.74 ms, 1.6 times the
-// bytes bound; the loads and stores alone (kCopy) take 0.67-0.70 ms.
-// Each thread's layer chain is serial, so the independent chains in
-// flight per SM set how far the two overlap.  Measured on an NVIDIA H100
-// 80GB HBM3 at 700 W: 1.11-1.13 ms (emit) and 1.15-1.17 ms (absorb),
-// 0.41 and 0.39 of the bytes bound.  PERF.md §5 has the split measured
-// with this file's variants.
+// arithmetic alone measured 0.73-0.74 ms, 1.6 times the bytes bound; the
+// loads and stores alone 0.67-0.70 ms.  Each thread's layer chain is
+// serial, so the independent chains in flight per SM set how far the two
+// overlap.  Measured on an NVIDIA H100 80GB HBM3 at 700 W: 1.11-1.13 ms
+// (emit) and 1.15-1.17 ms (absorb), 0.41 and 0.39 of the bytes bound.
+// The split and the alternatives below were measured with variants of
+// this kernel (no quadratures, arithmetic alone, copy alone, a TMA ring,
+// a persistent grid) that git keeps at commit 47e7c79.
 //
 // What the design does about it:
 //   * One block owns one column; each thread owns NPT contiguous
@@ -41,8 +42,8 @@
 //     constants never leave the SM.  NPT = 4 in 128-thread blocks with
 //     registers capped for six (emit) or seven (absorb) blocks per SM
 //     (24-28 warps, four independent layer chains per thread) measured
-//     fastest.  A persistent grid (kPersist: as many blocks as fit, each
-//     walking the columns) measured 10-11% slower.
+//     fastest.  A persistent grid (as many blocks as fit, each walking
+//     the columns) measured 10-11% slower.
 //     Every slab element is read at most once and written once; rows the
 //     TPU kernel copies through are copied here too (emit: F_up rows 0-1
 //     and F_down row 0; absorb: F_up row 0, F_down row L-1).
@@ -54,8 +55,8 @@
 //     column's first `rows - 1` compacted table rows.  A thread reads back
 //     only what it staged itself, so `cp.async.wait_group` is the only
 //     wait: no barrier in the layer loop and the warps of a block run
-//     free.  A ring filled by TMA bulk copies (kTma: one thread, a `full`
-//     and an `empty` mbarrier per slot) saves the ~3 copy instructions per
+//     free.  A ring filled by TMA bulk copies (one thread, a `full` and
+//     an `empty` mbarrier per slot) saves the ~3 copy instructions per
 //     thread and layer but ties the issuing warp to the block's slowest
 //     one, and measured 6-11% slower.  Where rows are 16-byte multiples
 //     (W = 500 in float32) each thread moves its wavelengths in 16-byte
@@ -74,8 +75,8 @@
 //     together (a transposed butterfly, 6 shuffles) into a shared slot;
 //     one barrier after the layer loop, then a sum over warps in warp
 //     order.  No atomics, so repeated runs give identical bits.  Without
-//     the quadratures at all (kNoSums) a sweep is 0.08-0.10 ms faster,
-//     which bounds what any other arrangement of the sums could gain.
+//     the quadratures at all a sweep measured 0.08-0.10 ms faster, which
+//     bounds what any other arrangement of the sums could gain.
 //   * The ragged edge (w >= W) is masked; there is no padding of B.
 //   * The `done` freeze is a masked store: a frozen column writes its old
 //     rows back (read only when frozen) and still reports its sums.
@@ -92,7 +93,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <algorithm>
 #include <cstring>
 #include <initializer_list>
 #include <type_traits>
@@ -102,25 +102,6 @@
 namespace {
 
 using namespace frei;
-
-// Kernel variants.  The solver launches only kSweep; the others exist to
-// measure where a sweep's time goes (chip_smoke.py phase 3d).
-constexpr int kSweep = 0;    // the sweep
-constexpr int kNoSums = 1;   // without the quadratures (sums left unwritten)
-constexpr int kCopy = 3;     // also without the layer arithmetic: the same
-                             // loads, stores and carry, a copy's floor
-constexpr int kArith = 4;    // the arithmetic and the quadratures without the
-                             // slabs: no ring, no stores (fixed opacity)
-constexpr int kTma = 8;      // the sweep with its ring filled by TMA bulk
-                             // copies (one thread, mbarriers; depth 1 only)
-constexpr int kPersist = 16; // the sweep on a persistent grid: as many blocks
-                             // as fit on the card, each walking the columns
-
-template <int MODE> __host__ __device__ constexpr bool has_sums() { return (MODE & 1) == 0; }
-template <int MODE> __host__ __device__ constexpr bool has_math() { return (MODE & 2) == 0; }
-template <int MODE> __host__ __device__ constexpr bool has_memory() { return (MODE & 4) == 0; }
-template <int MODE> __host__ __device__ constexpr bool has_tma() { return (MODE & kTma) != 0; }
-template <int MODE> __host__ __device__ constexpr bool persistent() { return (MODE & kPersist) != 0; }
 
 // Threads per block: at most 128 up to 4 wavelengths per thread (W <= 512),
 // 256 at 8 (W <= 2048); `plan_sweep` in ops/sweep_cuda.py keeps to it.
@@ -217,65 +198,6 @@ __device__ __forceinline__ Smem<T> smem_in(unsigned char* smem, const SweepArgs&
   return m;
 }
 
-// ---- asynchronous copies ----------------------------------------------
-
-// cp.async and a thread's row pieces are in twostream.cuh; TMA bulk
-// copies and mbarriers (the kTma variant's ring) here.
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
-}
-
-// Arrive and announce `bytes` of bulk copies that complete on `bar`.
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// Wait for phase `parity` of `bar` to complete; trap rather than hang.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  const unsigned addr = smem_addr(bar);
-  for (unsigned spins = 0;; ++spins) {
-    unsigned ready;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(ready)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (ready) return;
-    if (spins > (1u << 24)) __trap();
-  }
-}
-
-// One bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned)
-// from global into shared memory, completing on `bar`.
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
-          "r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-// The kTma variant's barriers: full[2] (a slot holds its rows), then
-// empty[2] (every warp has read them).
-__device__ __forceinline__ uint64_t* tma_bars() {
-  __shared__ __align__(8) uint64_t bars[4];
-  return bars;
-}
-
 // ---- per-block set-up -------------------------------------------------
 
 // Compact the column's non-zero weights into shared memory (in ascending
@@ -351,21 +273,11 @@ __device__ __forceinline__ const T* kappa_src(const SweepArgs& a, const Smem<T>&
 }
 
 // Stage layer l's rows into `slot`: the stale flux row `flux`, then its
-// staged kappa rows.  cp.async (`full` null): this thread's wavelengths,
-// one commit group.  TMA (one thread): whole rows, completing on `full`.
+// staged kappa rows; this thread's wavelengths, one commit group.
 template <typename T, int NPT>
 __device__ __forceinline__ void stage(const SweepArgs& a, const Smem<T>& sm, T* slot,
-                                      const T* flux, const T* kap_row, int l, int w0,
-                                      uint64_t* full) {
+                                      const T* flux, const T* kap_row, int l, int w0) {
   const int nk = staged_kappa_rows<T>(a, sm, kap_row, l);
-  if (full != nullptr) {
-    const unsigned row = (unsigned)a.W * sizeof(T);
-    mbar_expect(full, (1 + nk) * row);
-    bulk_copy(slot, flux, row, full);
-    for (int r = 0; r < nk; ++r)
-      bulk_copy(slot + (size_t)(r + 1) * a.wpad, kappa_src<T>(a, sm, kap_row, l, r), row, full);
-    return;
-  }
   const bool whole = a.whole != 0;
   stage_row<T, NPT>(slot, flux, w0, a.W, whole);
   for (int r = 0; r < nk; ++r)
@@ -376,78 +288,30 @@ __device__ __forceinline__ void stage(const SweepArgs& a, const Smem<T>& sm, T* 
 
 // The ring: step s of the layer loop reads slot s & 1 (depth 1: step
 // s + 1 is staged while step s computes) or slot 0 (depth 0: each step
-// stages its own rows).  cp.async: each thread stages and waits for its
-// own wavelengths, so no barrier is needed.  TMA (depth 1 only): thread 0
-// stages whole rows; full[k] completes when slot k holds them, and each
-// warp arrives on empty[k] once it has read them, which thread 0 awaits
-// before it refills the slot.  `stage_step(slot, full, s)` stages step s.
-template <typename T, bool TMA>
+// stages its own rows).  Each thread stages and waits for its own
+// wavelengths, so no barrier is needed.
+template <typename T>
 struct Ring {
   T* base;
   size_t slot_len;
   int depth;
-  uint64_t* bars;  // TMA: full[2], empty[2]
-
   __device__ T* slot(int s) const { return base + (depth ? (s & 1) : 0) * slot_len; }
-
-  template <class F>
-  __device__ void issue(int s, F&& stage_step) const {
-    if constexpr (TMA) {
-      if (threadIdx.x == 0) {
-        if (s >= 2) mbar_wait(bars + 2 + (s & 1), ((s >> 1) - 1) & 1);
-        stage_step(slot(s), bars + (s & 1), s);
-      }
-    } else {
-      stage_step(slot(s), static_cast<uint64_t*>(nullptr), s);
-    }
-  }
-
-  __device__ void wait(int s) const {
-    if constexpr (TMA) {
-      mbar_wait(bars + (s & 1), (s >> 1) & 1);
-    } else {
-      cp_wait_all();
-    }
-  }
-
-  __device__ void release(int s) const {
-    if constexpr (TMA) {
-      __syncwarp();
-      if ((threadIdx.x & 31) == 0) mbar_arrive(bars + 2 + (s & 1));
-    }
-  }
 };
-
-template <typename T, bool TMA>
-__device__ __forceinline__ Ring<T, TMA> ring_in(const SweepArgs& a, const Smem<T>& sm) {
-  Ring<T, TMA> r{sm.ring, (size_t)a.rows * a.wpad, a.depth, nullptr};
-  if constexpr (TMA) {
-    r.bars = tma_bars();
-    if (threadIdx.x == 0) {
-      for (int k = 0; k < 2; ++k) {
-        mbar_init(r.bars + k, 1);
-        mbar_init(r.bars + 2 + k, blockDim.x >> 5);
-      }
-      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    }
-    __syncthreads();
-  }
-  return r;
-}
 
 // One step of the layer loop, around the rows it reads: stage them
 // (depth 0), wait for them, read them with `read(slot)`, then (depth 1)
-// release the slot and stage the next step into the other one.
-template <typename T, bool TMA, class Stage, class Read>
-__device__ __forceinline__ void ring_step(const Ring<T, TMA>& ring, int s, int n,
-                                          Stage&& stage_step, Read&& read) {
-  if (ring.depth == 0) ring.issue(s, stage_step);
-  ring.wait(s);
+// stage the next step into the other slot.  `stage_step(slot, s)` stages
+// step s.  The two tests of the last line stay nested: joined with &&
+// they compiled to other registers and more spills in several of the
+// kernels' instantiations.
+template <typename T, class Stage, class Read>
+__device__ __forceinline__ void ring_step(const Ring<T>& ring, int s, int n, Stage&& stage_step,
+                                          Read&& read) {
+  if (ring.depth == 0) stage_step(ring.slot(s), s);
+  cp_wait_all();
   read(ring.slot(s));
   if (ring.depth != 0) {
-    ring.release(s);
-    if (s + 1 < n) ring.issue(s + 1, stage_step);
+    if (s + 1 < n) stage_step(ring.slot(s + 1), s + 1);
   }
 }
 
@@ -503,10 +367,8 @@ __device__ __forceinline__ void layer_kappa(const SweepArgs& a, const Smem<T>& s
 // One column of the emit sweep.  TAU: the launch writes the dtaus
 // diagnostic (the solve's final emit); the flag is a template so that the
 // other emits carry none of it.
-template <typename T, int NPT, int MODE, bool TAU>
+template <typename T, int NPT, bool TAU>
 __device__ __forceinline__ void emit_column(const SweepArgs& a, int b) {
-  constexpr bool kSums = has_sums<MODE>(), kMath = has_math<MODE>();
-  constexpr bool kMem = has_memory<MODE>();
   const int L = a.L, W = a.W, n = L - 1;
   const int w0 = NPT * threadIdx.x;  // this thread's first wavelength
   const bool whole = a.whole != 0;
@@ -530,12 +392,12 @@ __device__ __forceinline__ void emit_column(const SweepArgs& a, int b) {
 
   // step i sweeps layer l = i + 1 and reads the stale F_down row l + 1,
   // or F_TOA at the top
-  const auto ring = ring_in<T, has_tma<MODE>()>(a, sm);
-  auto stage_step = [&](T* slot, uint64_t* full, int i) {
+  const Ring<T> ring{sm.ring, (size_t)a.rows * a.wpad, a.depth};
+  auto stage_step = [&](T* slot, int i) {
     stage<T, NPT>(a, sm, slot, i + 1 < n ? Fd + (size_t)(i + 2) * W : ftoa,
-                  kap ? kap + (size_t)(i + 1) * W : nullptr, i + 1, w0, full);
+                  kap ? kap + (size_t)(i + 1) * W : nullptr, i + 1, w0);
   };
-  if (kMem && ring.depth != 0) ring.issue(0, stage_step);
+  if (ring.depth != 0) stage_step(ring.slot(0), 0);
 
   const T inv1 = sm.inv_t[1];
   T q1 = T(0);
@@ -553,7 +415,7 @@ __device__ __forceinline__ void emit_column(const SweepArgs& a, int b) {
     B1[j] = c1[j] / expm1_t<T>(xr[j] * inv1);
     q1 += z[j] * tw[j];
   }
-  if (kSums) warp_partial(q1, sm.part, 3 * n);  // incoming F_up of layer 1
+  warp_partial(q1, sm.part, 3 * n);  // incoming F_up of layer 1
 
   // one swept layer; the top one (T2 = T[-1]: B2 = B1, incoming F_TOA,
   // outgoing F_up not stored) is a compile-time case, peeled off the loop
@@ -561,18 +423,10 @@ __device__ __forceinline__ void emit_column(const SweepArgs& a, int b) {
     constexpr bool top = decltype(top_case)::value;
     const int l = i + 1;
     T kk[NPT], f2[NPT];
-    if (kMem) {
-      ring_step(ring, i, n, stage_step, [&](const T* slot) {
-        read_row<T, NPT>(slot, w0, f2);
-        layer_kappa<T, NPT>(a, sm, slot, kap, l, w0, ok, sg, kk);
-      });
-    } else {
-#pragma unroll
-      for (int j = 0; j < NPT; ++j) {
-        f2[j] = B1[j];
-        kk[j] = T(2) * sg[j];
-      }
-    }
+    ring_step(ring, i, n, stage_step, [&](const T* slot) {
+      read_row<T, NPT>(slot, w0, f2);
+      layer_kappa<T, NPT>(a, sm, slot, kap, l, w0, ok, sg, kk);
+    });
     const T dt = sm.dtf[i];
     const T inv2 = top ? T(0) : sm.inv_t[l + 1];
     const size_t r1 = (size_t)l * W, r2 = r1 + W;
@@ -583,48 +437,38 @@ __device__ __forceinline__ void emit_column(const SweepArgs& a, int b) {
       if (!ok[j]) continue;  // past W: nothing stored or summed
       const T F2d = f2[j];
       const T u = z[j];
-      if (!kMath) {
-        z[j] = kk[j] * dt + F2d;
-        dn[j] = u + kk[j];
-      } else {
-        const T dtau = kk[j] * dt;
-        // the final emit's diagnostic, one value at a time (rare)
-        if (kMem && TAU) tau[r1 + w0 + j] = dtau;
-        const T om = sg[j] / (sg[j] + kk[j]);
-        // T2 = T[-1] at the top: B2 = B1, incoming flux F_TOA (staged)
-        const T B2 = top ? B1[j] : c1[j] / expm1_t<T>(xr[j] * inv2);
-        const Couplers<T> cp = couplers_g0<T>(dtau, om, B1[j], B2);
-        z[j] = cp.a * u + (-cp.b * F2d + cp.s_up);
-        dn[j] = cp.a * F2d - cp.b * u + cp.s_down;
-        B1[j] = B2;
-      }
-      if (kSums) {
-        q0 += z[j] * tw[j];
-        q1 += F2d * tw[j];
-        q2 += dn[j] * tw[j];
-      }
+      const T dtau = kk[j] * dt;
+      // the final emit's diagnostic, one value at a time (rare)
+      if (TAU) tau[r1 + w0 + j] = dtau;
+      const T om = sg[j] / (sg[j] + kk[j]);
+      // T2 = T[-1] at the top: B2 = B1, incoming flux F_TOA (staged)
+      const T B2 = top ? B1[j] : c1[j] / expm1_t<T>(xr[j] * inv2);
+      const Couplers<T> cp = couplers_g0<T>(dtau, om, B1[j], B2);
+      z[j] = cp.a * u + (-cp.b * F2d + cp.s_up);
+      dn[j] = cp.a * F2d - cp.b * u + cp.s_down;
+      B1[j] = B2;
+      q0 += z[j] * tw[j];
+      q1 += F2d * tw[j];
+      q2 += dn[j] * tw[j];
     }
-    if (kMem) {
-      if (frozen) {  // a frozen column writes its old rows back
-        T old[NPT];
-        if (!top) {
-          load_row<T, NPT>(Fu + r2, w0, W, old);
-          write_row<T, NPT>(Fuo + r2, w0, W, whole, old);
-        }
-        load_row<T, NPT>(Fd + r1, w0, W, old);
-        write_row<T, NPT>(Fdo + r1, w0, W, whole, old);
-      } else {
-        // the top layer's outgoing flux is never stored
-        if (!top) write_row<T, NPT>(Fuo + r2, w0, W, whole, z);
-        write_row<T, NPT>(Fdo + r1, w0, W, whole, dn);
+    if (frozen) {  // a frozen column writes its old rows back
+      T old[NPT];
+      if (!top) {
+        load_row<T, NPT>(Fu + r2, w0, W, old);
+        write_row<T, NPT>(Fuo + r2, w0, W, whole, old);
       }
+      load_row<T, NPT>(Fd + r1, w0, W, old);
+      write_row<T, NPT>(Fdo + r1, w0, W, whole, old);
+    } else {
+      // the top layer's outgoing flux is never stored
+      if (!top) write_row<T, NPT>(Fuo + r2, w0, W, whole, z);
+      write_row<T, NPT>(Fdo + r1, w0, W, whole, dn);
     }
     // outgoing F_up, incoming F_down, outgoing F_down
-    if (kSums) warp_partials3(q0, q1, q2, sm.part, i, n + i, 2 * n + i);
+    warp_partials3(q0, q1, q2, sm.part, i, n + i, 2 * n + i);
   };
   for (int i = 0; i < n - 1; ++i) layer(i, std::false_type{});
   layer(n - 1, std::true_type{});
-  if (!kSums) return;
   __syncthreads();
   for (int s = threadIdx.x; s < 3 * n + 1; s += blockDim.x) {
     const T t = slot_total(sm.part, s);
@@ -641,10 +485,8 @@ __device__ __forceinline__ void emit_column(const SweepArgs& a, int b) {
 }
 
 // One column of the absorb sweep.
-template <typename T, int NPT, int MODE>
+template <typename T, int NPT>
 __device__ __forceinline__ void absorb_column(const SweepArgs& a, int b) {
-  constexpr bool kSums = has_sums<MODE>(), kMath = has_math<MODE>();
-  constexpr bool kMem = has_memory<MODE>();
   const int L = a.L, W = a.W, n = L - 1;
   const int w0 = NPT * threadIdx.x;  // this thread's first wavelength
   const bool whole = a.whole != 0;
@@ -665,13 +507,12 @@ __device__ __forceinline__ void absorb_column(const SweepArgs& a, int b) {
   setup<T, NPT>(a, b, sm, w0, ok, c1, xr, sg, tw);
 
   // step k sweeps layer i = n - 1 - k and reads its stale F_up row
-  const auto ring = ring_in<T, has_tma<MODE>()>(a, sm);
-  auto stage_step = [&](T* slot, uint64_t* full, int k) {
+  const Ring<T> ring{sm.ring, (size_t)a.rows * a.wpad, a.depth};
+  auto stage_step = [&](T* slot, int k) {
     const int i = n - 1 - k;
-    stage<T, NPT>(a, sm, slot, Fu + (size_t)i * W, kap ? kap + (size_t)i * W : nullptr, i, w0,
-                  full);
+    stage<T, NPT>(a, sm, slot, Fu + (size_t)i * W, kap ? kap + (size_t)i * W : nullptr, i, w0);
   };
-  if (kMem && ring.depth != 0) ring.issue(0, stage_step);
+  if (ring.depth != 0) stage_step(ring.slot(0), 0);
 
   const T invL = sm.inv_t[L - 1];
   T q2 = T(0);
@@ -688,23 +529,15 @@ __device__ __forceinline__ void absorb_column(const SweepArgs& a, int b) {
     B2[j] = c1[j] / expm1_t<T>(xr[j] * invL);
     q2 += d[j] * tw[j];
   }
-  if (kSums) warp_partial(q2, sm.part, 3 * n);  // incoming F_down of layer L-2
+  warp_partial(q2, sm.part, 3 * n);  // incoming F_down of layer L-2
 
   for (int k = 0; k < n; ++k) {
     const int i = n - 1 - k;
     T kk[NPT], f1[NPT];
-    if (kMem) {
-      ring_step(ring, k, n, stage_step, [&](const T* slot) {
-        read_row<T, NPT>(slot, w0, f1);
-        layer_kappa<T, NPT>(a, sm, slot, kap, i, w0, ok, sg, kk);
-      });
-    } else {
-#pragma unroll
-      for (int j = 0; j < NPT; ++j) {
-        f1[j] = B2[j];
-        kk[j] = T(2) * sg[j];
-      }
-    }
+    ring_step(ring, k, n, stage_step, [&](const T* slot) {
+      read_row<T, NPT>(slot, w0, f1);
+      layer_kappa<T, NPT>(a, sm, slot, kap, i, w0, ok, sg, kk);
+    });
     const T dt = sm.dtf[i];
     const T inv1 = sm.inv_t[i];
     T up[NPT];
@@ -715,41 +548,31 @@ __device__ __forceinline__ void absorb_column(const SweepArgs& a, int b) {
       if (!ok[j]) continue;  // past W: nothing stored or summed
       const T F1u = f1[j];     // stale upward flux
       const T dold = d[j];
-      if (!kMath) {
-        d[j] = kk[j] * dt + F1u;
-        up[j] = dold + kk[j];
-      } else {
-        const T dtau = kk[j] * dt;
-        const T om = sg[j] / (sg[j] + kk[j]);
-        const T B1 = c1[j] / expm1_t<T>(xr[j] * inv1);
-        const Couplers<T> cp = couplers_g0<T>(dtau, om, B1, B2[j]);
-        d[j] = cp.a * dold + (-cp.b * F1u + cp.s_down);
-        up[j] = cp.a * F1u - cp.b * dold + cp.s_up;
-        B2[j] = B1;
-      }
-      if (kSums) {
-        q0 += up[j] * tw[j];
-        q1 += F1u * tw[j];
-        q2 += d[j] * tw[j];
-      }
+      const T dtau = kk[j] * dt;
+      const T om = sg[j] / (sg[j] + kk[j]);
+      const T B1 = c1[j] / expm1_t<T>(xr[j] * inv1);
+      const Couplers<T> cp = couplers_g0<T>(dtau, om, B1, B2[j]);
+      d[j] = cp.a * dold + (-cp.b * F1u + cp.s_down);
+      up[j] = cp.a * F1u - cp.b * dold + cp.s_up;
+      B2[j] = B1;
+      q0 += up[j] * tw[j];
+      q1 += F1u * tw[j];
+      q2 += d[j] * tw[j];
     }
-    if (kMem) {
-      const size_t r1 = (size_t)i * W, r2 = r1 + W;
-      if (frozen) {  // a frozen column writes its old rows back
-        T old[NPT];
-        load_row<T, NPT>(Fd + r1, w0, W, old);
-        write_row<T, NPT>(Fdo + r1, w0, W, whole, old);
-        load_row<T, NPT>(Fu + r2, w0, W, old);
-        write_row<T, NPT>(Fuo + r2, w0, W, whole, old);
-      } else {
-        write_row<T, NPT>(Fdo + r1, w0, W, whole, d);
-        write_row<T, NPT>(Fuo + r2, w0, W, whole, up);
-      }
+    const size_t r1 = (size_t)i * W, r2 = r1 + W;
+    if (frozen) {  // a frozen column writes its old rows back
+      T old[NPT];
+      load_row<T, NPT>(Fd + r1, w0, W, old);
+      write_row<T, NPT>(Fdo + r1, w0, W, whole, old);
+      load_row<T, NPT>(Fu + r2, w0, W, old);
+      write_row<T, NPT>(Fuo + r2, w0, W, whole, old);
+    } else {
+      write_row<T, NPT>(Fdo + r1, w0, W, whole, d);
+      write_row<T, NPT>(Fuo + r2, w0, W, whole, up);
     }
     // outgoing F_up, incoming F_up, outgoing F_down
-    if (kSums) warp_partials3(q0, q1, q2, sm.part, i, n + i, 2 * n + i);
+    warp_partials3(q0, q1, q2, sm.part, i, n + i, 2 * n + i);
   }
-  if (!kSums) return;
   __syncthreads();
   for (int s = threadIdx.x; s < 3 * n + 1; s += blockDim.x) {
     const T t = slot_total(sm.part, s);
@@ -765,26 +588,19 @@ __device__ __forceinline__ void absorb_column(const SweepArgs& a, int b) {
   }
 }
 
-// The kernels: one block per column (the grid is B), or on a persistent
-// grid (kPersist) each block walks the columns, with a barrier before it
-// reuses the shared memory.  The sweep keeps the loop too: without it
-// the capped float32 kernels spilled more and ran slower.
-template <typename T, int NPT, int MODE, bool TAU>
+// The kernels: one block per column (the grid is B).  The column loop
+// stays although each block takes one column: without it the capped
+// float32 kernels spilled more and ran slower.
+template <typename T, int NPT, bool TAU>
 __global__ void __launch_bounds__(max_threads<NPT>(), min_blocks<T, NPT, true>())
     emit_kernel(SweepArgs a) {
-  for (int b = blockIdx.x; b < a.B; b += gridDim.x) {
-    emit_column<T, NPT, MODE, TAU>(a, b);
-    if constexpr (persistent<MODE>()) __syncthreads();
-  }
+  for (int b = blockIdx.x; b < a.B; b += gridDim.x) emit_column<T, NPT, TAU>(a, b);
 }
 
-template <typename T, int NPT, int MODE>
+template <typename T, int NPT>
 __global__ void __launch_bounds__(max_threads<NPT>(), min_blocks<T, NPT, false>())
     absorb_kernel(SweepArgs a) {
-  for (int b = blockIdx.x; b < a.B; b += gridDim.x) {
-    absorb_column<T, NPT, MODE>(a, b);
-    if constexpr (persistent<MODE>()) __syncthreads();
-  }
+  for (int b = blockIdx.x; b < a.B; b += gridDim.x) absorb_column<T, NPT>(a, b);
 }
 
 // ---- launch -----------------------------------------------------------
@@ -802,60 +618,30 @@ bool whole_rows(const SweepArgs& a) {
   return true;
 }
 
-template <typename T, bool EMIT, int NPT, int MODE>
+template <typename T, bool EMIT, int NPT>
 int run(const SweepArgs& a, int threads, size_t shmem, cudaStream_t stream) {
-  void (*kern)(SweepArgs) = absorb_kernel<T, NPT, MODE>;
-  if constexpr (EMIT) {
-    if constexpr (MODE == kSweep) {
-      kern = a.dtaus ? emit_kernel<T, NPT, MODE, true> : emit_kernel<T, NPT, MODE, false>;
-    } else {
-      if (a.dtaus) return (int)cudaErrorInvalidValue;  // variants write no dtaus
-      kern = emit_kernel<T, NPT, MODE, false>;
-    }
-  }
+  void (*kern)(SweepArgs) = absorb_kernel<T, NPT>;
+  if constexpr (EMIT) kern = a.dtaus ? emit_kernel<T, NPT, true> : emit_kernel<T, NPT, false>;
   SweepArgs args = a;
   args.whole = whole_rows<T, NPT>(a) ? 1 : 0;
-  // bulk copies move whole 16-byte rows into a two-slot ring
-  if (has_tma<MODE>() && (a.depth != 1 || (size_t)a.W * sizeof(T) % 16 != 0 || !args.whole))
-    return (int)cudaErrorInvalidValue;
   if (shmem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
     if (e != cudaSuccess) return (int)e;
   }
-  int grid = a.B;
-  if constexpr (persistent<MODE>()) {  // as many blocks as fit on the card
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads, shmem);
-    if (e != cudaSuccess) return (int)e;
-    grid = std::min(a.B, std::max(per_sm, 1) * sms);
-  }
-  kern<<<grid, threads, shmem, stream>>>(args);
+  kern<<<a.B, threads, shmem, stream>>>(args);
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool EMIT, int MODE>
+template <typename T, bool EMIT>
 int by_npt(const SweepArgs& a, int threads, int npt, size_t shmem, cudaStream_t s) {
   switch (npt) {
-    case 1: return run<T, EMIT, 1, MODE>(a, threads, shmem, s);
-    case 2: return run<T, EMIT, 2, MODE>(a, threads, shmem, s);
-    case 4: return run<T, EMIT, 4, MODE>(a, threads, shmem, s);
-    case 8: return run<T, EMIT, 8, MODE>(a, threads, shmem, s);
+    case 1: return run<T, EMIT, 1>(a, threads, shmem, s);
+    case 2: return run<T, EMIT, 2>(a, threads, shmem, s);
+    case 4: return run<T, EMIT, 4>(a, threads, shmem, s);
+    case 8: return run<T, EMIT, 8>(a, threads, shmem, s);
     default: return (int)cudaErrorInvalidValue;
   }
-}
-
-// The measurement variants exist for float32 at NPT 4 only (the
-// headline's W = 500 at 128 threads).
-template <typename T, bool EMIT, int MODE>
-int variant(const SweepArgs& a, int threads, int npt, size_t shmem, cudaStream_t s) {
-  if constexpr (std::is_same<T, float>::value) {
-    if (npt == 4) return run<T, EMIT, 4, MODE>(a, threads, shmem, s);
-  }
-  return (int)cudaErrorInvalidValue;
 }
 
 template <typename T, bool EMIT>
@@ -864,7 +650,7 @@ int launch(const void* dtf, const void* done, const void* temps, const void* ohs
            const void* c1, const void* xrow, const void* sigma, const void* f_toa,
            const void* tw, void* F_up_out, void* F_down_out, void* sums, void* dtaus,
            int B, int L, int W, int K, int dtf_stride, int ftoa_stride, int threads, int npt,
-           int depth, int rows, int smem, int mode, void* stream) {
+           int depth, int rows, int smem, void* stream) {
   if (B <= 0) return 0;
   if (L < 3 || W < 1 || (ohs && K < 1) || threads < 32 || threads % 32 ||
       (dtf_stride != 0 && dtf_stride != L - 1) || (ftoa_stride != 0 && ftoa_stride != W) ||
@@ -904,16 +690,7 @@ int launch(const void* dtf, const void* done, const void* temps, const void* ohs
   const size_t shmem =
       layout(ohs != nullptr, L, K, sizeof(T), threads, depth, rows, a.wpad).total;
   if (shmem != (size_t)smem || shmem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (mode) {
-    case kSweep: return by_npt<T, EMIT, kSweep>(a, threads, npt, shmem, s);
-    case kNoSums: return variant<T, EMIT, kNoSums>(a, threads, npt, shmem, s);
-    case kCopy: return variant<T, EMIT, kCopy>(a, threads, npt, shmem, s);
-    case kArith: return variant<T, EMIT, kArith>(a, threads, npt, shmem, s);
-    case kTma: return variant<T, EMIT, kTma>(a, threads, npt, shmem, s);
-    case kPersist: return variant<T, EMIT, kPersist>(a, threads, npt, shmem, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return by_npt<T, EMIT>(a, threads, npt, shmem, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -926,11 +703,11 @@ int launch(const void* dtf, const void* done, const void* temps, const void* ohs
                       const void* tw, void* F_up_out, void* F_down_out, void* sums,    \
                       void* dtaus, int B, int L, int W, int K, int dtf_stride,         \
                       int ftoa_stride, int threads, int npt, int depth, int rows,      \
-                      int smem, int mode, void* stream) {                              \
+                      int smem, void* stream) {                                        \
     return launch<T, EMIT>(dtf, done, temps, ohs, tab, kappa, F_up, F_down, c1, xrow,  \
                            sigma, f_toa, tw, F_up_out, F_down_out, sums, dtaus, B, L,  \
                            W, K, dtf_stride, ftoa_stride, threads, npt, depth, rows,   \
-                           smem, mode, stream);                                        \
+                           smem, stream);                                              \
   }
 
 FREI_SWEEP_LAUNCHER(frei_emit_sweep_f32, float, true)

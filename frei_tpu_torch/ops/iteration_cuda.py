@@ -22,10 +22,6 @@ Each form has
   wavelengths per thread, the depth of the kernels' shared-memory ring
   (0 or 1) and the rows it stages, and the shared-memory bytes, which
   the kernels check against their own layout.
-
-:func:`rc_iteration_variant` launches the iteration kernel's
-measurement variants (see ``VARIANTS``) and the ring at depth 0; it is
-for timing on the card and is not counted in ``.launches``.
 """
 
 from __future__ import annotations
@@ -48,19 +44,11 @@ from .sweep_cuda import (SMEM_LIMIT, SMEM_TARGET, SweepConsts, _align16,
 __all__ = ["IterationPack", "make_iteration_pack", "rc_iteration_plain",
            "rc_loop_plain", "rc_iteration_kernel", "rc_loop_kernel",
            "build", "IterationPlan", "plan_iteration",
-           "iteration_smem_bytes", "rc_iteration_variant", "VARIANTS"]
+           "iteration_smem_bytes"]
 
 _SOURCE = CSRC / "iteration.cu"
 _LIB_PATH = BUILD_DIR / "libfrei_iteration.so"
 _LN10 = 2.302585092994046  # ln(10)
-#: kernel variants of csrc/iteration.cu's iteration kernel (the solver
-#: launches only "step"): the arithmetic, quadratures and serial phases
-#: alone ("arith": no ring, no slab or table loads, no slab stores); the
-#: step's loads and stores with its weights ("copy": no coupler
-#: arithmetic, quadratures or temperature updates); the step without its
-#: serial phases ("no_serial": weights without search or exp, no
-#: temperature updates)
-VARIANTS = {"step": 0, "arith": 1, "copy": 2, "no_serial": 4}
 #: per-layer vectors of the kernels' working type in shared memory
 _LAYER_VECS = 9
 
@@ -277,7 +265,7 @@ class _IterArgs(ctypes.Structure):
         + [(name, ctypes.c_int) for name in (
             "B", "L", "W", "S", "nT", "nTc", "n_timesteps",
             "n_zero_crossings", "threads", "npt", "depth", "rows", "smem",
-            "mode", "wpad", "whole")])
+            "reserved", "wpad", "whole")])
 
 
 _lib = None
@@ -336,7 +324,7 @@ def iteration_smem_bytes(L: int, S: int, elem: int, threads: int, npt: int,
             + _align16((depth + 1) * rows * threads * npt * elem))
 
 
-def plan_iteration(W: int, L: int, S: int, elem: int, depth: int = 1,
+def plan_iteration(W: int, L: int, S: int, elem: int,
                    loop: bool = False) -> IterationPlan:
     """The launch plan of the iteration kernel (or with ``loop`` the loop
     kernel) over (B, L, W) slabs of ``elem``-byte values with ``S``
@@ -345,15 +333,11 @@ def plan_iteration(W: int, L: int, S: int, elem: int, depth: int = 1,
     The iteration kernel's block shape is the sweeps'
     (``sweep_cuda._block_shape``); the loop kernel's allows 256 threads
     (2 wavelengths per thread at W = 500: at 4 its step spilled under the
-    register cap and ran slower, PERF.md §5). The ring stages the stale flux row and both table rows of every species
-    one layer ahead (``depth`` 1, two slots). Where that exceeds
-    ``SMEM_TARGET`` it stages fewer species (the rest come from L2), and
-    failing that each layer stages only its own flux row (depth 0, one
-    slot). ``depth=0`` asks for that plan outright (a measurement of what
-    the ring gains)."""
-    if depth not in (0, 1):
-        raise ValueError(f"the iteration kernels' ring is 0 or 1 layers "
-                         f"deep, got {depth}")
+    register cap and ran slower, PERF.md §5).  The ring stages the stale
+    flux row and both table rows of every species one layer ahead
+    (``depth`` 1, two slots).  Where that exceeds ``SMEM_TARGET`` it
+    stages fewer species (the rest come from L2), and failing that each
+    layer stages only its own flux row (depth 0, one slot)."""
     npt, threads = _block_shape(W, 256 if loop else 128)
 
     def size(d, rows):
@@ -363,7 +347,7 @@ def plan_iteration(W: int, L: int, S: int, elem: int, depth: int = 1,
         raise ValueError(f"{L} layers x {S} species exceed the iteration "
                          "kernels' shared memory")
     for ss in range(S, -1, -1):
-        if depth and size(1, 1 + 2 * ss) <= SMEM_TARGET:
+        if size(1, 1 + 2 * ss) <= SMEM_TARGET:
             return IterationPlan(threads, npt, 1, 1 + 2 * ss,
                                  size(1, 1 + 2 * ss))
     return IterationPlan(threads, npt, 0, 1, size(0, 1))
@@ -416,11 +400,11 @@ def _check(temps, F_up, F_down, pack: IterationPack):
     return B, L, W, S, nT, nTc
 
 
-def _args(temps, F_up, F_down, pack, params, dims, sums, depth=1,
-          loop=False, **extra):
+def _args(temps, F_up, F_down, pack, params, dims, sums, loop=False,
+          **extra):
     B, L, W, S, nT, nTc = dims
     sc = pack.sc
-    plan = plan_iteration(W, L, S, F_up.element_size(), depth, loop)
+    plan = plan_iteration(W, L, S, F_up.element_size(), loop)
     return _IterArgs(
         **plan._asdict(),
         sums=None if sums is None else sums.data_ptr(),
@@ -449,12 +433,9 @@ def _launch(name, device, dtype, args):
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
-def _iteration(temps, F_up, F_down, done, pack, params, with_sums,
-               **plan_kw):
+def _iteration(temps, F_up, F_down, done, pack, params, with_sums):
     """Check the arguments, allocate the outputs and launch the iteration
-    kernel on the current stream (no synchronization); ``plan_kw`` (a
-    ``mode`` of ``VARIANTS``, ``depth`` of :func:`plan_iteration`)
-    selects measurement variants."""
+    kernel on the current stream (no synchronization)."""
     dims = _check(temps, F_up, F_down, pack)
     B, L = dims[:2]
     if (done.dtype != torch.bool or done.device != F_up.device
@@ -467,7 +448,7 @@ def _iteration(temps, F_up, F_down, done, pack, params, with_sums,
     args = _args(temps, F_up, F_down, pack, params, dims, sums,
                  done=done.data_ptr(), F_up_out=Fu.data_ptr(),
                  F_down_out=Fd.data_ptr(), T1=T1.data_ptr(),
-                 T2=T2.data_ptr(), dT2=dT2.data_ptr(), **plan_kw)
+                 T2=T2.data_ptr(), dT2=dT2.data_ptr())
     _launch("iteration", F_up.device, F_up.dtype, args)
     return (T1, Fu, Fd, T2, dT2) + ((sums,) if with_sums else ())
 
@@ -488,20 +469,6 @@ def rc_iteration_kernel(temps, F_up, F_down, done, pack: IterationPack,
         out = _iteration(temps, F_up, F_down, done, pack, params, with_sums)
     rc_iteration_kernel.launches += 1
     return out
-
-
-def rc_iteration_variant(variant: str, temps, F_up, F_down, done,
-                         pack: IterationPack, params: PhysicsParams,
-                         depth: int = 1):
-    """One launch of a variant of the iteration kernel on CUDA tensors,
-    for timing: ``variant`` is a key of ``VARIANTS`` and ``depth`` that
-    of :func:`plan_iteration` (0: no ring ahead).  The variants other
-    than "step" exist in float32 at 4 wavelengths per thread
-    (256 < W <= 512).  Not counted in the wrappers' launches."""
-    if not F_up.is_cuda:
-        raise RuntimeError("iteration variants run only on a CUDA device")
-    return _iteration(temps, F_up, F_down, done, pack, params, False,
-                      mode=VARIANTS[variant], depth=depth)
 
 
 def rc_loop_kernel(temps, F_up, F_down, pack: IterationPack,

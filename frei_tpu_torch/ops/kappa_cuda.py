@@ -16,10 +16,7 @@ It has
   for CUDA tensors, raises if it cannot, uses the plain twin for CPU
   tensors, and counts its calls in ``.launches``;
 * the plain twin :func:`kappa_plain`, the 4-point gather lookup, and the
-  plan's plain twin :func:`kappa_plan_plain`;
-* :func:`kappa_variant`, the measurement variants of ``chip_smoke.py``
-  (the plan alone, write-only, staging only, the first version's gather
-  from L2), which the solver never reaches.
+  plan's plain twin :func:`kappa_plan_plain`.
 """
 
 from __future__ import annotations
@@ -34,16 +31,13 @@ from ..opacity.tables import OpacityStack, _axis_weights, _kappa_gather
 from .cuda_build import BUILD_DIR, CSRC, build_library, load_library
 
 __all__ = ["ITEM_POINTS", "KappaPlan", "kappa_plain", "kappa_plan_plain",
-           "kappa_kernel", "kappa_variant", "build"]
+           "kappa_kernel", "build"]
 
 _SOURCE = CSRC / "kappa.cu"
 _LIB_PATH = BUILD_DIR / "libfrei_kappa.so"
 
 #: lookup points of one cell that one block of the kernel takes at most
 ITEM_POINTS = 32
-
-#: the launcher's modes: the lookup, then the measurement variants
-_MODES = {"lookup": 0, "write": 1, "stage": 2, "plan": 3, "gather": 4}
 
 
 class KappaPlan(NamedTuple):
@@ -106,9 +100,9 @@ def kappa_plan_plain(stack: OpacityStack, temperature, pressure_cgs,
 _lib = None
 _lib_lock = threading.Lock()
 
-#: the launchers' ctypes signatures: mode, ten pointers, N, five ints,
-#: the stream
-SIGNATURES = {name: ([ctypes.c_int] + [ctypes.c_void_p] * 10
+#: the launchers' ctypes signatures: ten pointers, N, five ints, the
+#: stream
+SIGNATURES = {name: ([ctypes.c_void_p] * 10
                      + [ctypes.c_int64] + [ctypes.c_int] * 5
                      + [ctypes.c_void_p])
               for name in ("frei_kappa_f32", "frei_kappa_f64")}
@@ -155,13 +149,11 @@ def _check(stack: OpacityStack, sigma_scat):
                          "contiguous")
 
 
-def _launch(mode: str, stack: OpacityStack, mmr, temperature, pressure_cgs,
-            sigma_scat, item_points: int = ITEM_POINTS, library=None):
-    """Run the launcher in ``mode`` on a CUDA stack, with work items of up
-    to ``item_points`` points, from ``library`` (default: the build of
-    ``csrc/kappa.cu``); returns the (N, W) output (unwritten for the plan
-    alone), the plan as the device left it (``order`` and the offsets
-    unwritten for the gather) and the points' broadcast shape."""
+def _launch(stack: OpacityStack, mmr, temperature, pressure_cgs,
+            sigma_scat):
+    """Run the plan and the lookup on a CUDA stack, with work items of up
+    to :data:`ITEM_POINTS` points; returns the (N, W) output, the plan as
+    the device left it and the points' broadcast shape."""
     values = stack.values
     _check(stack, sigma_scat)
     dtype, device = values.dtype, values.device
@@ -177,16 +169,15 @@ def _launch(mode: str, stack: OpacityStack, mmr, temperature, pressure_cgs,
     frac = values.new_empty((N, 2))
     scratch = torch.empty(2 * N + 3 * M + 5, dtype=torch.int32,
                           device=device)
-    lib = _library() if library is None else library
-    fn = getattr(lib, "frei_kappa_f32" if dtype == torch.float32
+    fn = getattr(_library(), "frei_kappa_f32" if dtype == torch.float32
                  else "frei_kappa_f64")
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(_MODES[mode], t.data_ptr(), p.data_ptr(), mmr.data_ptr(),
+        err = fn(t.data_ptr(), p.data_ptr(), mmr.data_ptr(),
                  stack.temps.data_ptr(), stack.press_cgs.data_ptr(),
                  values.data_ptr(), sigma_scat.data_ptr(), frac.data_ptr(),
                  scratch.data_ptr(), out.data_ptr(), N, S, nT, nP, W,
-                 item_points, stream)
+                 ITEM_POINTS, stream)
     if err != 0:
         raise RuntimeError(f"kappa kernel launch failed: CUDA error {err}")
     key, order, rest = scratch.split([N, N, 3 * M + 5])
@@ -207,7 +198,7 @@ def kappa_kernel(stack: OpacityStack, mmr, temperature, pressure_cgs,
                            sigma_scat)
     if not values.is_cuda:
         raise RuntimeError(f"no kappa kernel for device {values.device}")
-    out, _, shape = _launch("lookup", stack, mmr, temperature, pressure_cgs,
+    out, _, shape = _launch(stack, mmr, temperature, pressure_cgs,
                             sigma_scat)
     kappa_kernel.launches += 1
     return out.reshape(shape + (values.shape[-1],)), sigma_scat
@@ -215,23 +206,3 @@ def kappa_kernel(stack: OpacityStack, mmr, temperature, pressure_cgs,
 
 kappa_kernel.launches = 0
 
-
-def kappa_variant(variant: str, stack: OpacityStack, mmr, temperature,
-                  pressure_cgs, sigma_scat, *, item_points: int = ITEM_POINTS,
-                  library=None):
-    """A measurement variant of the kernel on a CUDA stack (not counted in
-    ``kappa_kernel.launches``): ``"lookup"`` (the kernel itself),
-    ``"plan"`` (the plan alone), ``"write"`` (sigma rows through the
-    plan, no table), ``"stage"`` (the plan and the lookup kernel's staging
-    without its arithmetic and stores) or ``"gather"`` (the first
-    version: every corner read from L2 per point, in point order).
-    ``item_points`` and ``library`` (a build of ``csrc/kappa.cu`` loaded
-    with ``load_library(..., SIGNATURES)``) are for timing trials.
-    Returns ``(out (N, W), plan)``."""
-    if variant not in _MODES:
-        raise ValueError(f"unknown kappa variant {variant!r}")
-    if not stack.values.is_cuda:
-        raise RuntimeError("the kappa variants run only on a CUDA device")
-    out, plan, _ = _launch(variant, stack, mmr, temperature, pressure_cgs,
-                           sigma_scat, item_points, library)
-    return out, plan

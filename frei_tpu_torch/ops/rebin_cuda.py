@@ -102,15 +102,19 @@ def build() -> str:
     return build_library(_SOURCE, _LIB_PATH)
 
 
+#: the library's launchers and their ctypes argument types: five
+#: pointers, R, N, B, the stream
+SIGNATURES = {name: ([ctypes.c_void_p] * 5
+                     + [ctypes.c_int, ctypes.c_int64, ctypes.c_int,
+                        ctypes.c_void_p])
+              for name in ("frei_rebin_f32", "frei_rebin_f64")}
+
+
 def _library():
     global _lib
     with _lib_lock:
         if _lib is None:
-            sig = ([ctypes.c_void_p] * 5
-                   + [ctypes.c_int, ctypes.c_int64, ctypes.c_int,
-                      ctypes.c_void_p])
-            _lib = load_library(_SOURCE, _LIB_PATH, {
-                "frei_rebin_f32": sig, "frei_rebin_f64": sig})
+            _lib = load_library(_SOURCE, _LIB_PATH, SIGNATURES)
     return _lib
 
 

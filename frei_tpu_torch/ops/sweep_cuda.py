@@ -21,10 +21,6 @@ Each sweep direction has
   stages, and the shared-memory bytes, which the kernel checks against
   its own layout.
 
-:func:`sweep_variant` launches the kernel's measurement variants (see
-``VARIANTS``) and the ring at depth 0; it is for timing on the card and
-is not counted in ``.launches``.
-
 The opacity argument ``kappa`` is either the materialized (B, L, W)
 total-opacity slab or a pair ``(ohs, tab)`` of (B, L, K) T-interpolation
 weight rows and (L, K, W) layer tables (``opacity.tables``), in which
@@ -50,7 +46,7 @@ __all__ = ["SweepConsts", "make_sweep_consts", "emit_kernel",
            "absorb_kernel", "emit_plain", "absorb_plain",
            "emit_epilogue", "absorb_epilogue", "emit_sweep_cuda",
            "absorb_sweep_cuda", "build", "SweepPlan", "plan_sweep",
-           "sweep_smem_bytes", "sweep_variant"]
+           "sweep_smem_bytes"]
 
 _SOURCE = CSRC / "sweep.cu"
 _LIB_PATH = BUILD_DIR / "libfrei_sweep.so"
@@ -63,13 +59,6 @@ STAGED_KAPPA_ROWS = 2
 #: 128 threads for the float32 headline)
 SMEM_TARGET = 36 * 1024
 SMEM_LIMIT = 227 * 1024
-#: kernel variants of csrc/sweep.cu (the solver launches only "sweep"):
-#: without the quadratures ("no_sums", sums left unwritten); also without
-#: the layer arithmetic ("copy": the same loads, stores and carry); the
-#: arithmetic and quadratures alone ("arith": no ring, no stores); the
-#: ring filled by TMA bulk copies ("tma"); a persistent grid ("persistent")
-VARIANTS = {"sweep": 0, "no_sums": 1, "copy": 3, "arith": 4, "tma": 8,
-            "persistent": 16}
 
 
 class SweepConsts(NamedTuple):
@@ -246,16 +235,19 @@ def build() -> str:
     return build_library(_SOURCE, _LIB_PATH)
 
 
+#: the library's launchers and their ctypes argument types: seventeen
+#: pointers, eleven ints, the stream
+SIGNATURES = {name: ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 11
+                     + [ctypes.c_void_p])
+              for name in ("frei_emit_sweep_f32", "frei_emit_sweep_f64",
+                           "frei_absorb_sweep_f32", "frei_absorb_sweep_f64")}
+
+
 def _library():
     global _lib
     with _lib_lock:
         if _lib is None:
-            sig = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 12
-                   + [ctypes.c_void_p])
-            _lib = load_library(_SOURCE, _LIB_PATH, {
-                name: sig for name in (
-                    "frei_emit_sweep_f32", "frei_emit_sweep_f64",
-                    "frei_absorb_sweep_f32", "frei_absorb_sweep_f64")})
+            _lib = load_library(_SOURCE, _LIB_PATH, SIGNATURES)
     return _lib
 
 
@@ -312,8 +304,7 @@ def _block_shape(W: int, most: int = 128):
     return npt, (per + 31) // 32 * 32
 
 
-def plan_sweep(W: int, L: int, K: int, elem: int, fused: bool,
-               depth: int = 1) -> SweepPlan:
+def plan_sweep(W: int, L: int, K: int, elem: int, fused: bool) -> SweepPlan:
     """The launch plan of one sweep over (B, L, W) slabs of ``elem``-byte
     values, fused (K weight rows) or materialized opacity.
 
@@ -321,11 +312,7 @@ def plan_sweep(W: int, L: int, K: int, elem: int, fused: bool,
     materialized row, or ``STAGED_KAPPA_ROWS`` compacted table rows) one
     layer ahead (``depth`` 1, two slots).  Where that exceeds
     ``SMEM_TARGET`` it stages fewer kappa rows, and failing that each
-    layer stages only its own flux row (depth 0, one slot).  ``depth=0``
-    asks for that plan outright (a measurement of what the ring gains)."""
-    if depth not in (0, 1):
-        raise ValueError(f"the sweep's ring is 0 or 1 layers deep, got "
-                         f"{depth}")
+    layer stages only its own flux row (depth 0, one slot)."""
     npt, threads = _block_shape(W)
     kappa_rows = min(K, STAGED_KAPPA_ROWS) if fused else 1
 
@@ -336,17 +323,15 @@ def plan_sweep(W: int, L: int, K: int, elem: int, fused: bool,
         raise ValueError(f"weight rows of {L} x {K} exceed the kernel's "
                          "shared memory")
     for nk in range(kappa_rows, -1, -1):
-        if depth and size(1, 1 + nk) <= SMEM_TARGET:
+        if size(1, 1 + nk) <= SMEM_TARGET:
             return SweepPlan(threads, npt, 1, 1 + nk, size(1, 1 + nk))
     return SweepPlan(threads, npt, 0, 1, size(0, 1))
 
 
 def _launch(direction: str, temps, F_up, F_down, kappa, sc: SweepConsts,
-            done, with_dtaus=False, mode=0, **plan_kw):
+            done, with_dtaus=False):
     """Check the arguments, allocate the outputs and launch one sweep
-    on the current stream (no synchronization).  ``mode`` (a value of
-    ``VARIANTS``) and ``plan_kw`` (``depth`` of :func:`plan_sweep`)
-    select measurement variants."""
+    on the current stream (no synchronization)."""
     B, L, W = F_up.shape
     dtype, device = F_up.dtype, F_up.device
     if dtype not in (torch.float32, torch.float64):
@@ -389,7 +374,7 @@ def _launch(direction: str, temps, F_up, F_down, kappa, sc: SweepConsts,
     if L < 3 or W > 8 * 256:
         raise ValueError(f"sweep kernels need L >= 3 and W <= 2048, got "
                          f"L={L}, W={W}")
-    plan = plan_sweep(W, L, K, F_up.element_size(), fused, **plan_kw)
+    plan = plan_sweep(W, L, K, F_up.element_size(), fused)
 
     F_up_out = torch.empty_like(F_up)
     F_down_out = torch.empty_like(F_down)
@@ -407,7 +392,7 @@ def _launch(direction: str, temps, F_up, F_down, kappa, sc: SweepConsts,
                  F_up_out.data_ptr(), F_down_out.data_ptr(),
                  sums.data_ptr(), _ptr(dtaus), B, L, W, K,
                  (L - 1) * (dtf.ndim == 2), W * (sc.f_toa.ndim == 2),
-                 *plan, mode, stream)
+                 *plan, stream)
     if err != 0:
         raise RuntimeError(f"{direction} sweep kernel launch failed: "
                            f"CUDA error {err}")
@@ -446,21 +431,6 @@ def absorb_kernel(temps, F_up, F_down, kappa, sc: SweepConsts, done=None):
 
 emit_kernel.launches = 0
 absorb_kernel.launches = 0
-
-
-def sweep_variant(direction: str, variant: str, temps, F_up, F_down, kappa,
-                  sc: SweepConsts, done=None, **plan_kw):
-    """One launch of a variant of the ``direction`` sweep kernel on CUDA
-    tensors, for timing: ``variant`` is a key of ``VARIANTS`` and
-    ``plan_kw`` is ``depth`` of :func:`plan_sweep` (0: no ring ahead).
-    The variants other than "sweep" exist in float32 at 4 wavelengths per
-    thread (256 < W <= 512), write no dtaus, and "tma" needs the ring of
-    depth 1 and rows of whole 16-byte pieces.  Not counted in the
-    wrappers' launches."""
-    if not F_up.is_cuda:
-        raise RuntimeError("sweep variants run only on a CUDA device")
-    return _launch(direction, temps, F_up, F_down, kappa, sc, done,
-                   mode=VARIANTS[variant], **plan_kw)
 
 
 # --------------------------------------------------------------------------

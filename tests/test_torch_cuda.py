@@ -254,26 +254,6 @@ def test_population_kernel_matches_plain_twin(direction, dtype, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("variant", ["tma", "persistent"])
-@pytest.mark.parametrize("direction", ["emit", "absorb"])
-def test_sweep_variants_give_the_sweeps_bits(direction, variant):
-    """The measurement variants that compute the whole sweep (its ring
-    filled by TMA bulk copies; a persistent grid, here with fewer blocks
-    than the 1000 columns) give the sweep's bits, fused and materialized,
-    some columns frozen."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the sweep kernels run only on "
-                    "the card")
-    dev = torch.device("cuda")
-    sc, T, Fu, Fd, kaps, done = _sweep_case(torch.float32, dev, 1000, 30,
-                                            500, 70, "some")
-    for form, kap in kaps.items():
-        want = S.sweep_variant(direction, "sweep", T, Fu, Fd, kap, sc, done)
-        got = S.sweep_variant(direction, variant, T, Fu, Fd, kap, sc, done)
-        assert all(torch.equal(x, y) for x, y in zip(got, want)), form
-
-
-@pytest.mark.cuda
 def test_kernel_rejects_bad_arguments():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the sweep kernels run only on "
@@ -915,7 +895,7 @@ def test_kappa_kernel_and_plan_at_the_edges(dtype, case):
     np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
                                rtol=rtol, atol=atol * scale)
     want = KC.kappa_plan_plain(stack, T, P)
-    _, plan = KC.kappa_variant("plan", *args)
+    _, plan, _ = KC._launch(*args)
     torch.cuda.synchronize()
     M = stack.values.shape[1] * stack.values.shape[2]
     outside = (want.key == M).reshape(got.shape[:-1])
@@ -930,12 +910,6 @@ def test_kappa_kernel_and_plan_at_the_edges(dtype, case):
         assert outside.all()
     if case == "one-cell":
         assert (want.key == want.key[0]).all() and not outside.any()
-    # the first version's gather of every corner from L2 computes the
-    # same function
-    gather, _ = KC.kappa_variant("gather", *args)
-    np.testing.assert_allclose(gather.reshape(got.shape).cpu().numpy(),
-                               ref.cpu().numpy(), rtol=rtol,
-                               atol=atol * scale)
 
 
 # ---- the differentiable solve and item 13's paths on the card (phase 4f)

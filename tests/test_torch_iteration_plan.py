@@ -116,32 +116,10 @@ def test_plan_shrinks_to_fit(W, L, S, elem, depth, rows):
 
 
 def test_plan_options_and_refusal():
-    """depth=0 asks for the flux-row-only single slot; other depths, more
-    layers and species than shared memory holds, and rows past 2048
-    wavelengths are refused."""
-    p0 = ic.plan_iteration(500, 30, 1, 4, depth=0)
-    assert (p0.depth, p0.rows, p0.npt, p0.threads) == (0, 1, 4, 128)
-    assert p0.smem == ic.iteration_smem_bytes(30, 1, 4, 128, 4, 0, 1)
-    for depth in (-1, 2):
-        with pytest.raises(ValueError, match="0 or 1 layers deep"):
-            ic.plan_iteration(500, 30, 1, 4, depth=depth)
+    """More layers and species than shared memory holds, and rows past
+    2048 wavelengths, are refused."""
     with pytest.raises(ValueError, match="shared memory"):
         ic.plan_iteration(500, 300, 80, 8)
     with pytest.raises(ValueError, match="block shape"):
         ic.plan_iteration(2049, 30, 1, 4)
 
-
-def test_variants_are_named():
-    """The iteration kernel's measurement variants, as csrc/iteration.cu
-    numbers its template modes; the solver launches only "step"."""
-    assert ic.VARIANTS == {"step": 0, "arith": 1, "copy": 2, "no_serial": 4}
-
-
-def test_variant_launcher_refuses_the_cpu():
-    """The measurement variants exist only as kernels: no plain twin."""
-    import torch
-    T = torch.ones((1, 3), dtype=torch.float64)
-    F = torch.zeros((1, 3, 4), dtype=torch.float64)
-    with pytest.raises(RuntimeError, match="CUDA device"):
-        ic.rc_iteration_variant("arith", T, F, F,
-                                torch.zeros(1, dtype=torch.bool), None, None)

@@ -204,25 +204,22 @@ def test_plan_headline_and_layout():
 def test_plan_shrinks_to_fit(W, L, K, elem, fused):
     """Wide float64 rows: the plan stages fewer kappa rows, then a
     shallower ring, to stay under the shared-memory target, and every
-    plan fits the card's 227 KB."""
+    plan fits the card's 227 KB; at depth 0 it is the ring-less block,
+    the flux row alone."""
     plan = sc_mod.plan_sweep(W, L, K, elem, fused)
     assert plan.smem <= sc_mod.SMEM_TARGET or plan.depth == 0
     assert plan.smem <= sc_mod.SMEM_LIMIT
     assert plan.smem == sc_mod.sweep_smem_bytes(
         fused, L, K, elem, plan.threads, plan.npt, plan.depth, plan.rows)
-    full = sc_mod.plan_sweep(W, L, K, elem, fused, depth=0)
-    assert (full.depth, full.rows) == (0, 1)
+    ringless = sc_mod.sweep_smem_bytes(fused, L, K, elem, plan.threads,
+                                       plan.npt, depth=0, rows=1)
+    assert ringless <= plan.smem
+    assert plan.depth == 1 or (plan.rows, plan.smem) == (1, ringless)
 
 
 def test_plan_options_and_refusal():
-    """The ring is 0 or 1 layers deep (depth 0 stages only the flux row);
-    other depths, weight rows too large for shared memory and rows past
-    2048 wavelengths are refused."""
-    p0 = sc_mod.plan_sweep(500, 30, 30, 4, True, depth=0)
-    assert (p0.depth, p0.rows, p0.npt, p0.threads) == (0, 1, 4, 128)
-    for depth in (-1, 2, 3):
-        with pytest.raises(ValueError, match="0 or 1 layers deep"):
-            sc_mod.plan_sweep(500, 30, 30, 4, True, depth=depth)
+    """Weight rows too large for shared memory and rows past 2048
+    wavelengths are refused."""
     with pytest.raises(ValueError, match="weight rows"):
         sc_mod.plan_sweep(500, 60, 400, 8, True)
     with pytest.raises(ValueError, match="block shape"):
