@@ -43,7 +43,10 @@ Phases, one report line each, any failure raising (non-zero exit):
    chemistry (:func:`phase_iteration_chemistry`: ``FastChemTorch``'s
    default table for ``1H2-16O``, ``23Na``, ``48Ti-16O`` built on the
    card, its layer ln-MMR tables on 64 log T points for one and for three
-   species, float64 at 64 columns, rtol 1e-10);
+   species, float64 at 64 columns, rtol 1e-10); then the loop kernel's
+   ring plans at four species in float64 (:func:`loop_staging`: the plan
+   sized by the card's blocks per SM against the 3-row plan of a 36 KB
+   target, ``.l2_species`` a launch, both timed at 8192 columns);
 3c. the opacity plane's kernels against their twins: the rebin kernel on
    a device-resident 64-row x 2e6-sample float32 slab into the run's 500
    bins, against the float64 twin (rtol 1e-6 plus 1e-6 of the largest
@@ -908,6 +911,105 @@ def phase_iteration_chemistry():
         recs["loop"] = {"max_abs_err": max(recs["loop"]["max_abs_err"], err),
                         "err_over_tol": max(recs["loop"]["err_over_tol"], q)}
     return wall, recs
+
+
+def target_plan(F_up, dims, loop):
+    """The whole-iteration kernels' plan with no card to answer: the ring
+    kept to ``SMEM_TARGET`` (3 rows, one species staged, for the loop at
+    four species in float64)."""
+    from frei_tpu_torch.ops import iteration_cuda as IC
+    _, L, W, S = dims[:4]
+    return IC.plan_iteration(W, L, S, F_up.element_size(), loop)
+
+
+def loop_staging(rounds=4, calls=3):
+    """Phase 3b's ring plans: the loop kernel at four species in float64
+    (:data:`CHEM4_SPECIES` on the default 64 x 32 table built on the
+    card, a seeded stack of the four), 8192 columns x 20 iterations from
+    zero fluxes, under the plan sized by the card's blocks per SM and
+    under the target's 3-row plan (:func:`target_plan`), in alternating
+    rounds of ``calls`` calls: each plan, the species a launch leaves to
+    L2 (``.l2_species``), the blocks per SM, the mean time of each round,
+    and how far the two plans' outputs lie apart; then the card's plan
+    on the first one, two and three species, one round each (the cost of
+    a species with every species staged).  Returns the record."""
+    from frei_tpu_torch.chemistry.fastchem import FastChemTorch
+    from frei_tpu_torch.opacity.hotpath import build_kappa_model
+    from frei_tpu_torch.ops import iteration_cuda as IC
+    grid = make_grid(torch.float64)
+    c = grid._consts
+    chem = FastChemTorch(CHEM4_SPECIES, 2.4 * 1.67262192369e-24,
+                         dtype=torch.float64)
+    kappa = build_kappa_model(chem_stack(grid, CHEM4_SPECIES), chem,
+                              c.pressures, c.sigma_scat)
+    _, params = solver_args(grid)[:2]
+    pack = IC.make_iteration_pack(c, params, *kappa.iteration_hook)
+    scal = scalars(params)
+    T0 = columns(grid, N_COLUMNS)
+    Fz = torch.zeros((N_COLUMNS, N_LAYERS, N_BINS), dtype=torch.float64,
+                     device=grid.device)
+    S_ = len(CHEM4_SPECIES)
+    dims = (N_COLUMNS, N_LAYERS, N_BINS, S_)
+    card_plan = IC._card_plan
+
+    def run():
+        return IC.rc_loop_kernel(T0, Fz, Fz, pack, scal, N_ITERS, 10 ** 6,
+                                 0.0)
+
+    rec = {}
+    for name, planner in (("card", card_plan), ("target", target_plan)):
+        plan = planner(Fz, dims, True)
+        blocks = IC.card_blocks_per_sm(Fz.device, 8, True, plan.threads,
+                                       plan.npt, plan.smem)
+        rec[name] = {"plan": plan._asdict(), "blocks_per_sm": blocks,
+                     "ms": []}
+    try:
+        for _ in range(rounds):
+            for name, planner in (("card", card_plan),
+                                  ("target", target_plan)):
+                IC._card_plan = planner
+                n0 = (IC.rc_loop_kernel.launches,
+                      IC.rc_loop_kernel.l2_species)
+                rec[name]["ms"].append(time_ms(run, calls))
+                launches = IC.rc_loop_kernel.launches - n0[0]
+                rec[name]["l2_species_per_launch"] = (
+                    IC.rc_loop_kernel.l2_species - n0[1]) / launches
+        IC._card_plan = card_plan
+        out_card = run()
+        IC._card_plan = target_plan
+        out_target = run()
+    finally:
+        IC._card_plan = card_plan
+    torch.cuda.synchronize()
+    names = ("temps", "F_up", "F_down", "hist", "max_dT", "n_iters",
+             "converged")
+    rec["identical"] = {n: bool(torch.equal(a, b)) for n, a, b in
+                        zip(names, out_card, out_target)}
+    rec["max_rel_gap"] = max(float((a - b).abs().max() / b.abs().max())
+                             for a, b in zip(out_card[:5], out_target[:5]))
+    for name in ("card", "target"):
+        r = rec[name]
+        log(f"[timing] loop kernel, {S_} species float64, {name} plan "
+            f"{r['plan']} ({r['blocks_per_sm']} blocks an SM, "
+            f"{r['l2_species_per_launch']:g} species from L2 a launch): "
+            + ", ".join(f"{m:.4f}" for m in r["ms"]) + f" ms per {N_ITERS}-"
+            f"iteration loop (B={N_COLUMNS}, L={N_LAYERS}, W={N_BINS})")
+    log(f"[parity] loop kernel, card plan against target plan: identical "
+        f"{rec['identical']}, largest |difference| over an output's largest "
+        f"value {rec['max_rel_gap']:.3e}")
+    rec["species_ms"] = {S_: rec["card"]["ms"]}
+    for n in range(1, S_):
+        cut = build_kappa_model(chem_stack(grid, CHEM4_SPECIES[:n]),
+                                FirstSpecies(chem, n), c.pressures,
+                                c.sigma_scat)
+        pack = IC.make_iteration_pack(c, params, *cut.iteration_hook)
+        rec["species_ms"][n] = [time_ms(run, calls)]
+    log(f"[timing] loop kernel float64 on the card's plans, by species: "
+        + ", ".join(f"S={n} {min(ms):.4f} ms" for n, ms in
+                    sorted(rec["species_ms"].items())))
+    assert rec["card"]["l2_species_per_launch"] == S_ - (
+        rec["card"]["plan"]["rows"] - 1) // 2
+    return rec
 
 
 # the population of the JAX package's parallel tests
@@ -2333,6 +2435,7 @@ def main(argv):
                       for line in ptxas_summary(IC.build() + CH.build())))
         phase_iteration_parity()
         phase_iteration_chemistry()
+        loop_staging()
         return
     if argv == ["--differentiable"]:
         # the differentiable solve and item 13's paths: phase 4f (its
@@ -2381,6 +2484,7 @@ def main(argv):
     # mock chemistry's tables and on equilibrium tables (nTc = 64)
     whole = phase_iteration_parity()
     chem_build_3b, whole_chem = phase_iteration_chemistry()
+    loop_staging()
     # phase 3c: the opacity plane's kernels against their twins
     opac = phase_opacity_parity(make_grid(torch.float32).wl_bins)
 

@@ -61,7 +61,9 @@
 //     staged, so cp.async.wait_group is the only wait in the layer loop.
 //     The plan (threads, NPT, ring depth 1, or 0 where shared memory is
 //     short, staged rows, shared-memory bytes) is chosen in Python and
-//     checked here against this file's layout.
+//     checked here against this file's layout: it stages the most species
+//     that still leave the blocks per SM of the flux row alone, which
+//     `frei_rc_blocks_per_sm` reads from the card's occupancy calculator.
 //   * The three quadratures of a layer go through one transposed 6-shuffle
 //     butterfly into per-warp shared slots; one barrier after the layer
 //     loop, then a sum over warps in warp order: no atomics, identical
@@ -85,7 +87,8 @@
 // Bound to PyTorch through plain extern "C" launchers taking one argument
 // struct (mirrored by a ctypes.Structure in iteration_cuda.py); each
 // returns cudaGetLastError() after the launch, launches on the caller's
-// stream and does not synchronize.
+// stream and does not synchronize.  `frei_rc_blocks_per_sm` answers the
+// plan's occupancy queries and launches nothing.
 
 #include <cfloat>
 #include <cuda_runtime.h>
@@ -903,21 +906,25 @@ bool whole_rows(const IterArgs& a) {
   return true;
 }
 
+// The instantiation a launch takes, allowed `shmem` dynamic bytes.
+template <typename T, bool LOOP, int NPT>
+cudaError_t kernel_for(size_t shmem, void (**kern)(IterArgs)) {
+  if constexpr (LOOP) {
+    *kern = loop_kernel<T, NPT>;
+  } else {
+    *kern = iteration_kernel<T, NPT>;
+  }
+  if (shmem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(*kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
+}
+
 template <typename T, bool LOOP, int NPT>
 int run(const IterArgs& a0, size_t shmem, cudaStream_t stream) {
   IterArgs a = a0;
   a.whole = whole_rows<T, NPT>(a) ? 1 : 0;
   void (*kern)(IterArgs);
-  if constexpr (LOOP) {
-    kern = loop_kernel<T, NPT>;
-  } else {
-    kern = iteration_kernel<T, NPT>;
-  }
-  if (shmem > 48 * 1024) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  const cudaError_t e = kernel_for<T, LOOP, NPT>(shmem, &kern);
+  if (e != cudaSuccess) return (int)e;
   kern<<<a.B, a.threads, shmem, stream>>>(a);
   return (int)cudaGetLastError();
 }
@@ -929,6 +936,28 @@ int by_npt(const IterArgs& a, size_t shmem, cudaStream_t s) {
     case 2: return run<T, LOOP, 2>(a, shmem, s);
     case 4: return run<T, LOOP, 4>(a, shmem, s);
     case 8: return run<T, LOOP, 8>(a, shmem, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Blocks of one instantiation an SM holds at `threads` and `shmem`
+// dynamic bytes, from the card's occupancy calculator; launches nothing.
+template <typename T, bool LOOP, int NPT>
+int occupancy(int threads, size_t shmem, int* blocks) {
+  void (*kern)(IterArgs);
+  cudaError_t e = kernel_for<T, LOOP, NPT>(shmem, &kern);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kern, threads, shmem);
+  return (int)e;
+}
+
+template <typename T, bool LOOP>
+int occupancy_by_npt(int npt, int threads, size_t shmem, int* blocks) {
+  switch (npt) {
+    case 1: return occupancy<T, LOOP, 1>(threads, shmem, blocks);
+    case 2: return occupancy<T, LOOP, 2>(threads, shmem, blocks);
+    case 4: return occupancy<T, LOOP, 4>(threads, shmem, blocks);
+    case 8: return occupancy<T, LOOP, 8>(threads, shmem, blocks);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -964,4 +993,21 @@ extern "C" int frei_rc_loop_f32(const void* a, void* stream) {
 }
 extern "C" int frei_rc_loop_f64(const void* a, void* stream) {
   return launch<double, true>(a, stream);
+}
+
+// Blocks per SM of the iteration (`loop` 0) or loop kernel in float32
+// (`f64` 0) or float64 at `npt` wavelengths a thread, `threads` a block
+// and `smem` dynamic bytes, written to `*blocks`; the launch plan sizes
+// the shared-memory ring by it.
+extern "C" int frei_rc_blocks_per_sm(int f64, int loop, int npt, int threads, int smem,
+                                     int* blocks) {
+  *blocks = 0;
+  if (threads < 32 || threads % 32 || threads > 256 || smem < 0 || smem > 227 * 1024)
+    return (int)cudaErrorInvalidValue;
+  const size_t shmem = (size_t)smem;
+  if (f64)
+    return loop ? occupancy_by_npt<double, true>(npt, threads, shmem, blocks)
+                : occupancy_by_npt<double, false>(npt, threads, shmem, blocks);
+  return loop ? occupancy_by_npt<float, true>(npt, threads, shmem, blocks)
+              : occupancy_by_npt<float, false>(npt, threads, shmem, blocks);
 }

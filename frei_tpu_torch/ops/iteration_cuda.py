@@ -15,13 +15,15 @@ Each form has
   with ``nvcc`` at first use into ``csrc/build/`` and loaded with ctypes;
 * a wrapper (:func:`rc_iteration_kernel`, :func:`rc_loop_kernel`) that
   launches the kernel for CUDA tensors, raises if it cannot, uses the
-  plain twin for CPU tensors, and counts its launches in ``.launches``;
+  plain twin for CPU tensors, and counts its launches in ``.launches``
+  and the species its plan leaves to L2 reads in ``.l2_species``;
 * a plain PyTorch twin (:func:`rc_iteration_plain`,
   :func:`rc_loop_plain`) with the same signature and outputs;
 * a launch plan per kernel (:func:`plan_iteration`): threads,
   wavelengths per thread, the depth of the kernels' shared-memory ring
   (0 or 1) and the rows it stages, and the shared-memory bytes, which
-  the kernels check against their own layout.
+  the kernels check against their own layout; the ring is sized by the
+  blocks per SM the card holds (:func:`card_blocks_per_sm`).
 """
 
 from __future__ import annotations
@@ -44,7 +46,7 @@ from .sweep_cuda import (SMEM_LIMIT, SMEM_TARGET, SweepConsts, _align16,
 __all__ = ["IterationPack", "make_iteration_pack", "rc_iteration_plain",
            "rc_loop_plain", "rc_iteration_kernel", "rc_loop_kernel",
            "build", "IterationPlan", "plan_iteration",
-           "iteration_smem_bytes"]
+           "iteration_smem_bytes", "card_blocks_per_sm"]
 
 _SOURCE = CSRC / "iteration.cu"
 _LIB_PATH = BUILD_DIR / "libfrei_iteration.so"
@@ -284,6 +286,8 @@ def build() -> str:
 SIGNATURES = {name: [ctypes.POINTER(_IterArgs), ctypes.c_void_p]
               for name in ("frei_rc_iteration_f32", "frei_rc_iteration_f64",
                            "frei_rc_loop_f32", "frei_rc_loop_f64")}
+SIGNATURES["frei_rc_blocks_per_sm"] = [ctypes.c_int] * 5 + [
+    ctypes.POINTER(ctypes.c_int)]
 
 
 def _library():
@@ -324,8 +328,8 @@ def iteration_smem_bytes(L: int, S: int, elem: int, threads: int, npt: int,
             + _align16((depth + 1) * rows * threads * npt * elem))
 
 
-def plan_iteration(W: int, L: int, S: int, elem: int,
-                   loop: bool = False) -> IterationPlan:
+def plan_iteration(W: int, L: int, S: int, elem: int, loop: bool = False,
+                   blocks_per_sm=None) -> IterationPlan:
     """The launch plan of the iteration kernel (or with ``loop`` the loop
     kernel) over (B, L, W) slabs of ``elem``-byte values with ``S``
     species.
@@ -335,9 +339,14 @@ def plan_iteration(W: int, L: int, S: int, elem: int,
     (2 wavelengths per thread at W = 500: at 4 its step spilled under the
     register cap and ran slower, PERF.md §5).  The ring stages the stale
     flux row and both table rows of every species one layer ahead
-    (``depth`` 1, two slots).  Where that exceeds ``SMEM_TARGET`` it
-    stages fewer species (the rest come from L2), and failing that each
-    layer stages only its own flux row (depth 0, one slot)."""
+    (``depth`` 1, two slots).  ``blocks_per_sm(threads, npt, smem)`` gives
+    the blocks of this kernel an SM holds at ``smem`` dynamic bytes (the
+    card's answer, :func:`card_blocks_per_sm`, or a model of it): the ring
+    stages the most species that still leave as many blocks as the flux
+    row alone at depth 1 (the rest come from L2); where no depth-1 ring
+    fits the card, each layer stages only its own flux row (depth 0, one
+    slot).  Without ``blocks_per_sm`` (no card answers) the ring keeps
+    to ``SMEM_TARGET`` bytes, in the same order of fallbacks."""
     npt, threads = _block_shape(W, 256 if loop else 128)
 
     def size(d, rows):
@@ -346,11 +355,56 @@ def plan_iteration(W: int, L: int, S: int, elem: int,
     if size(0, 1) > SMEM_LIMIT:
         raise ValueError(f"{L} layers x {S} species exceed the iteration "
                          "kernels' shared memory")
+    if blocks_per_sm is None:
+        def fits(n):
+            return n <= SMEM_TARGET
+    else:
+        def blocks(n):
+            return blocks_per_sm(threads, npt, n) if n <= SMEM_LIMIT else 0
+        want = max(blocks(size(1, 1)), 1)
+
+        def fits(n):
+            return blocks(n) >= want
     for ss in range(S, -1, -1):
-        if size(1, 1 + 2 * ss) <= SMEM_TARGET:
+        if fits(size(1, 1 + 2 * ss)):
             return IterationPlan(threads, npt, 1, 1 + 2 * ss,
                                  size(1, 1 + 2 * ss))
     return IterationPlan(threads, npt, 0, 1, size(0, 1))
+
+
+_occupancy = {}
+
+
+def card_blocks_per_sm(device, elem: int, loop: bool, threads: int,
+                       npt: int, smem: int) -> int:
+    """Blocks per SM of the iteration (or with ``loop`` the loop) kernel
+    for ``elem``-byte values at ``npt`` wavelengths per thread,
+    ``threads`` per block and ``smem`` dynamic bytes, on the card of
+    ``device``: ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` for
+    the exact instantiation, asked once per key."""
+    device = torch.device(device)
+    key = (device.index, elem, bool(loop), threads, npt, smem)
+    if key not in _occupancy:
+        out = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            err = _library().frei_rc_blocks_per_sm(
+                int(elem == 8), int(bool(loop)), npt, threads, smem,
+                ctypes.byref(out))
+        if err != 0:
+            raise RuntimeError(f"occupancy query failed: CUDA error {err}")
+        _occupancy[key] = out.value
+    return _occupancy[key]
+
+
+def _card_plan(F_up, dims, loop: bool) -> IterationPlan:
+    """The plan of a launch over ``F_up``, sized by its card."""
+    _, L, W, S = dims[:4]
+    elem = F_up.element_size()
+
+    def blocks(threads, npt, smem):
+        return card_blocks_per_sm(F_up.device, elem, loop, threads, npt,
+                                  smem)
+    return plan_iteration(W, L, S, elem, loop, blocks)
 
 
 def _scalar(x) -> float:
@@ -400,11 +454,9 @@ def _check(temps, F_up, F_down, pack: IterationPack):
     return B, L, W, S, nT, nTc
 
 
-def _args(temps, F_up, F_down, pack, params, dims, sums, loop=False,
-          **extra):
+def _args(temps, F_up, F_down, pack, params, dims, plan, sums, **extra):
     B, L, W, S, nT, nTc = dims
     sc = pack.sc
-    plan = plan_iteration(W, L, S, F_up.element_size(), loop)
     return _IterArgs(
         **plan._asdict(),
         sums=None if sums is None else sums.data_ptr(),
@@ -433,6 +485,12 @@ def _launch(name, device, dtype, args):
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
+def _count(wrapper, S: int, plan: IterationPlan):
+    """Count a launch and the species its plan reads from L2."""
+    wrapper.launches += 1
+    wrapper.l2_species += S - (plan.rows - 1) // 2
+
+
 def _iteration(temps, F_up, F_down, done, pack, params, with_sums):
     """Check the arguments, allocate the outputs and launch the iteration
     kernel on the current stream (no synchronization)."""
@@ -445,11 +503,13 @@ def _iteration(temps, F_up, F_down, done, pack, params, with_sums):
     Fu, Fd = torch.empty_like(F_up), torch.empty_like(F_down)
     T1, T2, dT2 = (torch.empty_like(temps) for _ in range(3))
     sums = temps.new_empty((B, 2, 4, L - 1)) if with_sums else None
-    args = _args(temps, F_up, F_down, pack, params, dims, sums,
+    plan = _card_plan(F_up, dims, loop=False)
+    args = _args(temps, F_up, F_down, pack, params, dims, plan, sums,
                  done=done.data_ptr(), F_up_out=Fu.data_ptr(),
                  F_down_out=Fd.data_ptr(), T1=T1.data_ptr(),
                  T2=T2.data_ptr(), dT2=dT2.data_ptr())
     _launch("iteration", F_up.device, F_up.dtype, args)
+    _count(rc_iteration_kernel, dims[3], plan)
     return (T1, Fu, Fd, T2, dT2) + ((sums,) if with_sums else ())
 
 
@@ -466,9 +526,7 @@ def rc_iteration_kernel(temps, F_up, F_down, done, pack: IterationPack,
     if not F_up.is_cuda:
         raise RuntimeError(f"no iteration kernel for device {F_up.device}")
     with telemetry.span("frei.kernel.iteration"):
-        out = _iteration(temps, F_up, F_down, done, pack, params, with_sums)
-    rc_iteration_kernel.launches += 1
-    return out
+        return _iteration(temps, F_up, F_down, done, pack, params, with_sums)
 
 
 def rc_loop_kernel(temps, F_up, F_down, pack: IterationPack,
@@ -496,7 +554,8 @@ def rc_loop_kernel(temps, F_up, F_down, pack: IterationPack,
         n_iters = torch.empty((B,), dtype=torch.int32, device=temps.device)
         conv = torch.empty((B, L), dtype=torch.bool, device=temps.device)
         sums = temps.new_empty((B, 2, 4, L - 1)) if with_sums else None
-        args = _args(temps, F_up, F_down, pack, params, dims, sums, loop=True,
+        plan = _card_plan(F_up, dims, loop=True)
+        args = _args(temps, F_up, F_down, pack, params, dims, plan, sums,
                      F_up_out=Fu.data_ptr(), F_down_out=Fd.data_ptr(),
                      temps_out=tout.data_ptr(), hist=hist.data_ptr(),
                      max_dT=maxdt.data_ptr(), n_iters=n_iters.data_ptr(),
@@ -505,10 +564,10 @@ def rc_loop_kernel(temps, F_up, F_down, pack: IterationPack,
                      n_timesteps=int(n_timesteps),
                      n_zero_crossings=min(int(n_zero_crossings), 2 ** 31 - 1))
         _launch("loop", F_up.device, F_up.dtype, args)
-    rc_loop_kernel.launches += 1
+        _count(rc_loop_kernel, dims[3], plan)
     return (tout, Fu, Fd, hist, maxdt, n_iters, conv) + (
         (sums,) if with_sums else ())
 
 
-rc_iteration_kernel.launches = 0
-rc_loop_kernel.launches = 0
+rc_iteration_kernel.launches = rc_iteration_kernel.l2_species = 0
+rc_loop_kernel.launches = rc_loop_kernel.l2_species = 0

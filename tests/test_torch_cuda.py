@@ -509,9 +509,9 @@ class _FirstSpecies:
 def test_whole_iteration_kernels_on_equilibrium_tables(kernel, dtype, S_):
     """One RC step of the iteration kernel, or one iteration of the loop
     kernel, on equilibrium ln-MMR tables (64 log T points) of one, three
-    and (in float64, where the loop's ring stages one species and reads
-    three from L2) four species, held as above (``_hold_step``), 500 bins
-    x 30 layers, six columns."""
+    and (in float64, where the loop's ring stages every species) four
+    species, held as above (``_hold_step``), 500 bins x 30 layers, six
+    columns."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the iteration kernels run only "
                     "on the card")
@@ -546,6 +546,66 @@ def test_loop_kernel_converges_early_at_the_new_layout():
     pack, params, T, Fu, _, _ = _iteration_case(
         torch.float64, torch.device("cuda"), 6, 30, 500, 2, "none")
     _hold_early_convergence(T, Fu, pack, params, 4, hold_state=False)
+
+
+@pytest.mark.cuda
+def test_card_plans_of_the_float64_loop():
+    """On the card, the loop kernel at 500 bins x 30 layers in float64
+    holds one block an SM with the flux row alone: one species keeps the
+    3-row ring it had under the 36 KB target, four species stage every
+    table row (9 rows, 84,240 bytes) at that one block."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the occupancy comes from the card")
+    from frei_tpu_torch.ops import iteration_cuda as IC
+    F = torch.empty((1, 30, 500), dtype=torch.float64, device="cuda")
+    for S_, want in ((1, IC.IterationPlan(256, 2, 1, 3, 34368)),
+                     (4, IC.IterationPlan(256, 2, 1, 9, 84240))):
+        plan = IC._card_plan(F, (1, 30, 500, S_), True)
+        assert plan == want
+        flux_row = IC.iteration_smem_bytes(30, S_, 8, 256, 2, 1, 1)
+        blocks = [IC.card_blocks_per_sm(F.device, 8, True, 256, 2, n)
+                  for n in (flux_row, plan.smem)]
+        assert blocks == [1, 1]
+
+
+@pytest.mark.cuda
+def test_loop_kernel_stages_every_species(monkeypatch):
+    """At the four-species float64 deployment's shape (500 bins x 30
+    layers, 20 iterations from zero fluxes, the equilibrium tables of four
+    species; 256 columns), the plan sized by the card stages every
+    species (none read from L2 a launch) and the 3-row plan of the 36 KB
+    target one (three from L2); both give the same bits: temperatures,
+    fluxes, history, max|dT|, iteration counts and converged flags."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the iteration kernels run only "
+                    "on the card")
+    from frei_tpu_torch.ops import iteration_cuda as IC
+    pack, params, T, Fu, _, _ = _iteration_case(
+        torch.float64, torch.device("cuda"), 256, 30, 500, 4, "none",
+        chem=_equilibrium_chemistry())
+    Fz = torch.zeros_like(Fu)
+
+    def run():
+        n0 = (IC.rc_loop_kernel.launches, IC.rc_loop_kernel.l2_species)
+        out = IC.rc_loop_kernel(T, Fz, Fz, pack, params, 20, 10 ** 6, 0.0)
+        torch.cuda.synchronize()
+        return out, (IC.rc_loop_kernel.launches - n0[0],
+                     IC.rc_loop_kernel.l2_species - n0[1])
+
+    def target(F_up, dims, loop):
+        _, L_, W_, S_ = dims[:4]
+        return IC.plan_iteration(W_, L_, S_, F_up.element_size(), loop)
+    got, counts = run()
+    assert counts == (1, 0)
+    assert all(bool(torch.isfinite(x).all()) for x in got[:5])
+    monkeypatch.setattr(IC, "_card_plan", target)
+    assert target(Fz, (256, 30, 500, 4), True).rows == 3
+    ref, counts = run()
+    assert counts == (1, 3)
+    names = ("temps", "F_up", "F_down", "hist", "max_dT", "n_iters",
+             "converged")
+    for name, a, b in zip(names, got, ref):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.cuda
