@@ -46,7 +46,11 @@ Phases, one report line each, any failure raising (non-zero exit):
    species, float64 at 64 columns, rtol 1e-10); then the loop kernel's
    ring plans at four species in float64 (:func:`loop_staging`: the plan
    sized by the card's blocks per SM against the 3-row plan of a 36 KB
-   target, ``.l2_species`` a launch, both timed at 8192 columns);
+   target, ``.l2_species`` a launch, both timed at 8192 columns); then a
+   population on both kernels (:func:`phase_population_loop`: 8192
+   columns, four species in equilibrium, float64, every column bit for
+   bit its planet's shared-planet solve, ``.per_column`` launches, and a
+   population's time on ``"loop"`` against ``"cuda"``);
 3c. the opacity plane's kernels against their twins: the rebin kernel on
    a device-resident 64-row x 2e6-sample float32 slab into the run's 500
    bins, against the float64 twin (rtol 1e-6 plus 1e-6 of the largest
@@ -670,13 +674,6 @@ def iteration_inputs(grid, n):
     return T, Fu, Fd, done, pack, params
 
 
-def scalars(params):
-    """Physics scalars as Python floats, as the solver passes them to the
-    whole-iteration kernels."""
-    return params._replace(g=float(params.g), m_bar=float(params.m_bar),
-                           alpha=float(params.alpha))
-
-
 def whole_times(plain):
     """The whole-iteration kernels' times at the headline shape, float32,
     no column frozen: one RC step of ``rc_iteration_kernel`` on phase 3's
@@ -685,8 +682,8 @@ def whole_times(plain):
     their twins' too.  Returns {kernel: {"ms", "bytes"[, "plain_ms"]}}."""
     from frei_tpu_torch.ops import iteration_cuda as IC
     grid = make_grid(torch.float32)
-    T, Fu, Fd, done, pack, params = iteration_inputs(grid, N_COLUMNS)
-    scal = scalars(params)
+    # the physics as 0-d tensors on the card, as the solver passes them
+    T, Fu, Fd, done, pack, scal = iteration_inputs(grid, N_COLUMNS)
     live = torch.zeros_like(done)   # the main path's inputs
     it = {"ms": time_ms(lambda: IC.rc_iteration_kernel(
         T, Fu, Fd, live, pack, scal), 10), "bytes": rc_bytes(Fu, pack, 1)}
@@ -944,7 +941,7 @@ def loop_staging(rounds=4, calls=3):
                               c.pressures, c.sigma_scat)
     _, params = solver_args(grid)[:2]
     pack = IC.make_iteration_pack(c, params, *kappa.iteration_hook)
-    scal = scalars(params)
+    scal = params   # 0-d tensors on the card, as the solver passes them
     T0 = columns(grid, N_COLUMNS)
     Fz = torch.zeros((N_COLUMNS, N_LAYERS, N_BINS), dtype=torch.float64,
                      device=grid.device)
@@ -1067,6 +1064,76 @@ def phase_population():
         f"{equal} of {len(planets)} columns bit-equal to their planet's own "
         f"Grid solve on cuda (all within rtol 1e-12); flux vs eager max rel "
         f"{fr:.3e} (rtol 1e-9)")
+
+
+def phase_population_loop(calls=3):
+    """Phase 3b's population on the whole-iteration kernels: the grid at
+    500 bins x 30 layers in float64 with :data:`CHEM4_SPECIES` in
+    equilibrium (the default table, built on the card) on a seeded
+    stack; ``solve_population`` of the eight planets of
+    :data:`POPULATION8` cycled over 8192 columns, 20 iterations (exits
+    off) on ``"loop"`` and 5 on ``"iteration"``: every column bit for bit
+    its planet's shared-planet ``Grid`` solve of the same profiles on the
+    same engine, and each launch counted in ``.per_column``.  Then 8192
+    distinct planets (:func:`population_draws`) timed on ``"loop"``
+    against ``"cuda"``, ``calls`` calls each, build included.  Returns
+    the record."""
+    from frei_tpu_torch import Grid, Planet
+    from frei_tpu_torch.chemistry.fastchem import FastChemTorch
+    from frei_tpu_torch.ops import iteration_cuda as IC
+    from frei_tpu_torch.parallel import solve_population
+    from frei_tpu_torch.rt.solver import SolverConfig, solve_rc_batched
+    grid = make_grid(torch.float64)
+    chem = FastChemTorch(CHEM4_SPECIES, 2.4 * 1.67262192369e-24,
+                         dtype=torch.float64)
+    stack = chem_stack(grid, CHEM4_SPECIES)
+    grid.load_opacities(opacities=stack, chemistry=chem)
+    planets = [Planet(*p) for p in POPULATION8] * (N_COLUMNS // 8)
+    T0 = columns(grid, N_COLUMNS, seed=3)
+    rec = {}
+    for engine, n_it in (("loop", N_ITERS), ("iteration", 5)):
+        cfg = SolverConfig(n_it, 10 ** 6, 0.0, engine=engine)
+        wrapper = (IC.rc_loop_kernel if engine == "loop"
+                   else IC.rc_iteration_kernel)
+        n0 = (wrapper.launches, wrapper.per_column)
+        pop = solve_population(T0, grid, planets, cfg)
+        torch.cuda.synchronize()
+        counts = (wrapper.launches - n0[0], wrapper.per_column - n0[1])
+        assert counts == ((1, 1) if engine == "loop" else (n_it, n_it)), \
+            counts
+        for j, p in enumerate(planets[:8]):
+            g1 = Grid(p, n_wl_bins=N_BINS, n_layers=N_LAYERS, T_ref=2400.0,
+                      dtype=torch.float64, device="cuda")
+            g1.load_opacities(opacities=stack, chemistry=chem)
+            one = solve_rc_batched(T0, g1._consts, p.physics_params(),
+                                   g1._kappa_fn, cfg)
+            torch.cuda.synchronize()
+            for f in ("flux", "final_temps", "temp_history",
+                      "max_dT_history", "dtaus", "loop_F_up",
+                      "loop_F_down", "n_iterations"):
+                assert torch.equal(getattr(pop, f)[j::8],
+                                   getattr(one, f)[j::8]), (engine, j, f)
+        rec[engine] = {"iterations": n_it, "launches": counts[0],
+                       "per_column": counts[1]}
+        log(f"[parity] population of {N_COLUMNS} columns (8 planets "
+            f"cycled), {len(CHEM4_SPECIES)} species in equilibrium, float64, "
+            f"{n_it} iterations on {engine}: every column bit for bit its "
+            f"planet's shared-planet Grid solve; launches {counts[0]}, with "
+            f"per-column rows {counts[1]}")
+    a_rstar, g_si, t_star, alpha = population_draws(N_COLUMNS)
+    drawn = [Planet(a_rstar=a, m_bar=2.4, g=g, T_star=t, alpha=al)
+             for a, g, t, al in zip(a_rstar, g_si, t_star, alpha)]
+    T0 = columns(grid, N_COLUMNS)
+    for engine in ("loop", "cuda", "loop", "cuda"):
+        cfg = SolverConfig(N_ITERS, 10 ** 6, 0.0, engine=engine)
+        rec.setdefault(f"{engine}_ms", []).append(time_ms(
+            lambda: solve_population(T0, grid, drawn, cfg), calls))
+    log(f"[timing] population of {N_COLUMNS} distinct planets, "
+        f"{len(CHEM4_SPECIES)} species in equilibrium, float64, {N_ITERS} "
+        f"iterations, the build included: loop "
+        + ", ".join(f"{m:.2f}" for m in rec["loop_ms"]) + " ms, cuda "
+        + ", ".join(f"{m:.2f}" for m in rec["cuda_ms"]) + " ms a call")
+    return rec
 
 
 # the reference's chemistry test profile (`tests/test_fastchem.py:19-24`)
@@ -2436,6 +2503,7 @@ def main(argv):
         phase_iteration_parity()
         phase_iteration_chemistry()
         loop_staging()
+        phase_population_loop()
         return
     if argv == ["--differentiable"]:
         # the differentiable solve and item 13's paths: phase 4f (its
@@ -2485,6 +2553,7 @@ def main(argv):
     whole = phase_iteration_parity()
     chem_build_3b, whole_chem = phase_iteration_chemistry()
     loop_staging()
+    phase_population_loop()
     # phase 3c: the opacity plane's kernels against their twins
     opac = phase_opacity_parity(make_grid(torch.float32).wl_bins)
 

@@ -81,8 +81,15 @@
 //     never copied whole.  A column leaves its loop once it has
 //     converged; frozen trips are masked no-ops in the TPU kernel, so the
 //     outputs are identical.
-//   * No padding of B; the scalars are kernel arguments.  IEEE arithmetic
-//     throughout.
+//   * A population (one planet per column) and one shared planet take the
+//     same code: each column reads its own F_TOA row, dtau-factor rows and
+//     (g, m_bar, alpha) row at a stride of one row, which is 0 for a shared
+//     planet (the sweep kernels' convention).  The rows are located once a
+//     block, the dtau factors staged with the column's temperatures, and
+//     the epilogue reads the column's physics row from L1; the layer loop
+//     and the ring are unchanged.
+//   * No padding of B; the remaining scalars are kernel arguments.  IEEE
+//     arithmetic throughout.
 //
 // Bound to PyTorch through plain extern "C" launchers taking one argument
 // struct (mirrored by a ctypes.Structure in iteration_cuda.py); each
@@ -143,10 +150,10 @@ struct IterArgs {
   const void* c1;          // (W,) 2 h c^2 / lam^5
   const void* xrow;        // (W,) h c / (k lam)
   const void* sigma;       // (W,) scattering opacity
-  const void* f_toa;       // (W,) top-of-atmosphere flux
+  const void* f_toa;       // (W,) or (B, W) top-of-atmosphere flux
   const void* tw;          // (W,) trapezoid weights
-  const void* dtf_emit;    // (L-1,) dtau factors, emit ordering
-  const void* dtf_absorb;  // (L-1,) dtau factors, absorb ordering
+  const void* dtf_emit;    // (L-1,) or (B, L-1) dtau factors, emit ordering
+  const void* dtf_absorb;  // (L-1,) or (B, L-1) dtau factors, absorb ordering
   const void* p1e;         // (L-1,) emit p1 = p[1:]
   const void* p2e;         // (L-1,) emit p2 = p[2:] + extrapolated top
   const void* p1a;         // (L-1,) absorb p1 = p[:-1]
@@ -164,8 +171,15 @@ struct IterArgs {
   uint8_t* conv;           // (B, L) loop kernel
   void* sums;              // (B, 2, 4, L-1) quadratures of the (last) step's
                            // emit and absorb sweeps, or null
+  // per column, placed after the parent layout's pointers: with `phys`
+  // among the inputs and the strides after the ints, loop_kernel<double,
+  // 2> ran 1.2% slower at S = 4 on an H100
+  const void* phys;        // (3,) or (B, 3): g, m_bar, alpha
+  // the elements of f_toa, dtf and phys a column moves on: W, L-1 and 3
+  // for a population (one planet per column), 0 for one shared planet
+  int ftoa_stride, dtf_stride, phys_stride;
   // scalars
-  double g, m_bar, alpha, n_dof, k_B, sigma_sb, convergence_dT;
+  double n_dof, k_B, sigma_sb, convergence_dT;
   int B, L, W, S, nT, nTc, n_timesteps, n_zero_crossings;
   // the launch plan (ops/iteration_cuda.plan_iteration)
   int threads;  // threads per block
@@ -486,14 +500,15 @@ __device__ __forceinline__ void layer_kappa(const IterArgs& a, const Smem<T>& sm
 // state from (Fu, Fd), writes into (Fuo, Fdo), which may alias them: F_up
 // row 0 copied through where they differ, the F_up rows 2 .. L-2 that the
 // absorb reads, and F_down row L-1 (all of them only for a live column).
-// Returns F_down row L-1 in `carry` and the block quadratures in sm.sums.
+// `ftoa` is the column's F_TOA row.  Returns F_down row L-1 in `carry`
+// and the block quadratures in sm.sums.
 template <typename T, int NPT>
 __device__ __forceinline__ void emit_pass(const IterArgs& a, const Smem<T>& sm,
-                                          const Rows<T, NPT>& r, const T* Fu, const T* Fd,
-                                          T* Fuo, T* Fdo, bool frozen, T carry[NPT]) {
+                                          const Rows<T, NPT>& r, const T* ftoa, const T* Fu,
+                                          const T* Fd, T* Fuo, T* Fdo, bool frozen,
+                                          T carry[NPT]) {
   const int L = a.L, W = a.W, n = L - 1, w0 = r.w0;
   const bool whole = a.whole != 0;
-  const T* ftoa = static_cast<const T*>(a.f_toa);
   const Ring<T> ring{sm.ring, (size_t)a.rows * a.wpad, a.depth};
   // step i sweeps layer l = i + 1 and reads the stale F_down row l + 1, or
   // F_TOA at the top
@@ -683,24 +698,28 @@ __device__ __forceinline__ void store_sums(const Smem<T>& sm, T* out, int n) {
   for (int s = threadIdx.x; s < 4 * n; s += blockDim.x) out[s] = sm.sums[s];
 }
 
+// The physics of column b: its row of `phys` (g, m_bar, alpha).
 template <typename T>
-__device__ __forceinline__ Phys<T> phys_of(const IterArgs& a) {
+__device__ __forceinline__ Phys<T> phys_of(const IterArgs& a, int b) {
+  const T* p = static_cast<const T*>(a.phys) + (size_t)b * a.phys_stride;
   Phys<T> ph;
-  ph.g = T(a.g);
-  ph.m_bar = T(a.m_bar);
-  ph.alpha = T(a.alpha);
+  ph.g = __ldg(p);
+  ph.m_bar = __ldg(p + 1);
+  ph.alpha = __ldg(p + 2);
   ph.k_B = T(a.k_B);
   ph.sigma_sb = T(a.sigma_sb);
   ph.c_p = T(2.0 + a.n_dof) / (T(2) * ph.m_bar) * ph.k_B;
   return ph;
 }
 
-// One RC step from sm.tc: T1 into sm.t1, T2 into sm.t2, dT2 into sm.dt;
-// the quadratures of both sweeps into `sums_out` unless it is null.
+// One RC step of column b from sm.tc: T1 into sm.t1, T2 into sm.t2, dT2
+// into sm.dt; the quadratures of both sweeps into `sums_out` unless it is
+// null.  `ftoa` is the column's F_TOA row.
 template <typename T, int NPT>
 __device__ __forceinline__ void rc_step(const IterArgs& a, const Smem<T>& sm,
-                                        const Rows<T, NPT>& r, const T* Fu, const T* Fd,
-                                        T* Fuo, T* Fdo, bool frozen, T* sums_out) {
+                                        const Rows<T, NPT>& r, int b, const T* ftoa,
+                                        const T* Fu, const T* Fd, T* Fuo, T* Fdo, bool frozen,
+                                        T* sums_out) {
   const int L = a.L, n = L - 1;
   const T* p1e = static_cast<const T*>(a.p1e);
   const T* p2e = static_cast<const T*>(a.p2e);
@@ -711,12 +730,12 @@ __device__ __forceinline__ void rc_step(const IterArgs& a, const Smem<T>& sm,
 
   build_weights<T>(a, sm, sm.tc);
   __syncthreads();
-  emit_pass<T, NPT>(a, sm, r, Fu, Fd, Fuo, Fdo, frozen, carry);
+  emit_pass<T, NPT>(a, sm, r, ftoa, Fu, Fd, Fuo, Fdo, frozen, carry);
   store_sums<T>(sm, sums_out, n);
   for (int l = threadIdx.x; l < L; l += blockDim.x) {
     T dT = T(0);
     if (l > 0) {
-      const Phys<T> ph = phys_of<T>(a);
+      const Phys<T> ph = phys_of<T>(a, b);
       const int i = l - 1;
       const T T2 = l + 1 < L ? sm.tc[l + 1] : sm.tc[L - 1];
       dT = delta_temperature<T>(ph, S[i], S[n + i], S[2 * n + i], S[3 * n + i], sm.tc[l], T2,
@@ -733,7 +752,7 @@ __device__ __forceinline__ void rc_step(const IterArgs& a, const Smem<T>& sm,
   for (int l = threadIdx.x; l < L; l += blockDim.x) {
     T dT = T(0);
     if (l < n) {
-      const Phys<T> ph = phys_of<T>(a);
+      const Phys<T> ph = phys_of<T>(a, b);
       dT = delta_temperature<T>(ph, S[l], S[n + l], S[2 * n + l], S[3 * n + l], sm.t1[l],
                                 sm.t1[l + 1], p1a[l], p2a[l]);
     }
@@ -748,13 +767,19 @@ __device__ __forceinline__ T* sums_of(const IterArgs& a, int b) {
   return a.sums ? static_cast<T*>(a.sums) + (size_t)b * 8 * (a.L - 1) : nullptr;
 }
 
-// The column's temperatures into sm.tc and both dtf orderings into shared
-// memory; the caller's barrier publishes them.
+// Column b's F_TOA row.
+template <typename T>
+__device__ __forceinline__ const T* ftoa_of(const IterArgs& a, int b) {
+  return static_cast<const T*>(a.f_toa) + (size_t)b * a.ftoa_stride;
+}
+
+// Column b's temperatures into sm.tc and its rows of both dtf orderings
+// into shared memory; the caller's barrier publishes them.
 template <typename T>
 __device__ __forceinline__ void setup_block(const IterArgs& a, const Smem<T>& sm, int b) {
   const T* temps = static_cast<const T*>(a.temps) + (size_t)b * a.L;
-  const T* dte = static_cast<const T*>(a.dtf_emit);
-  const T* dta = static_cast<const T*>(a.dtf_absorb);
+  const T* dte = static_cast<const T*>(a.dtf_emit) + (size_t)b * a.dtf_stride;
+  const T* dta = static_cast<const T*>(a.dtf_absorb) + (size_t)b * a.dtf_stride;
   for (int l = threadIdx.x; l < a.L; l += blockDim.x) {
     sm.tc[l] = temps[l];
     if (l < a.L - 1) {
@@ -778,7 +803,7 @@ __global__ void __launch_bounds__(max_threads<NPT, false>(), min_blocks<T, NPT, 
   setup_block<T>(a, sm, b);
   __syncthreads();
   const bool frozen = a.done != nullptr && a.done[b] != 0;
-  rc_step<T, NPT>(a, sm, r, static_cast<const T*>(a.F_up) + slab,
+  rc_step<T, NPT>(a, sm, r, b, ftoa_of<T>(a, b), static_cast<const T*>(a.F_up) + slab,
                   static_cast<const T*>(a.F_down) + slab, static_cast<T*>(a.F_up_out) + slab,
                   static_cast<T*>(a.F_down_out) + slab, frozen, sums_of<T>(a, b));
   T* T1 = static_cast<T*>(a.T1) + (size_t)b * L;
@@ -864,6 +889,7 @@ __global__ void __launch_bounds__(max_threads<NPT, true>(), min_blocks<T, NPT, t
   for (int k = threadIdx.x; k < 2 * nt * L; k += blockDim.x) hist[k] = T(0);
   for (int k = threadIdx.x; k < nt; k += blockDim.x) maxdt[k] = T(0);
   setup_block<T>(a, sm, b);
+  const T* ftoa = ftoa_of<T>(a, b);
   for (int l = threadIdx.x; l < L; l += blockDim.x) {
     sm.prevT[l] = sm.tc[l];
     sm.prevS[l] = T(0);
@@ -877,7 +903,7 @@ __global__ void __launch_bounds__(max_threads<NPT, true>(), min_blocks<T, NPT, t
     const size_t slab = (size_t)b * L * W;
     T* Fuo = static_cast<T*>(a.F_up_out) + slab;
     T* Fdo = static_cast<T*>(a.F_down_out) + slab;
-    rc_step<T, NPT>(a, sm, r, it ? Fuo : static_cast<const T*>(a.F_up) + slab,
+    rc_step<T, NPT>(a, sm, r, b, ftoa, it ? Fuo : static_cast<const T*>(a.F_up) + slab,
                     it ? Fdo : static_cast<const T*>(a.F_down) + slab, Fuo, Fdo, false,
                     sums_of<T>(a, b));
     // a barrier that also publishes sm.tc; the column stops once every
@@ -969,7 +995,10 @@ int launch(const void* args, void* stream) {
   if (a.L < 3 || a.W < 1 || a.nT < 2 || a.nTc < 2 || a.S < 1 || a.threads < 32 ||
       a.threads % 32 || a.threads > (a.npt <= 4 ? max_threads<4, LOOP>() : max_threads<8, LOOP>()) ||
       (long long)a.threads * a.npt < a.W || a.depth < 0 || a.depth > 1 || a.rows < 1 ||
-      (a.rows - 1) % 2 != 0 || (a.rows - 1) / 2 > a.S)
+      (a.rows - 1) % 2 != 0 || (a.rows - 1) / 2 > a.S ||
+      (a.ftoa_stride != 0 && a.ftoa_stride != a.W) ||
+      (a.dtf_stride != 0 && a.dtf_stride != a.L - 1) ||
+      (a.phys_stride != 0 && a.phys_stride != 3))
     return (int)cudaErrorInvalidValue;
   a.wpad = a.threads * a.npt;
   // the caller's plan must agree with this file's layout

@@ -7,7 +7,9 @@ its temperature update, an absorb sweep at the updated temperatures and
 its update, with the per-column ``done`` freeze applied to the flux
 slabs.  The loop form runs the whole fixed-horizon RC loop: history
 rows, the incremental zero-crossing counters, max|dT| per iteration,
-per-column iteration counts and per-layer converged flags.
+per-column iteration counts and per-layer converged flags.  Both forms
+solve one shared planet or a population, one planet per column, with
+per-column F_toa rows, dtau factors and g, m_bar and alpha.
 
 Each form has
 
@@ -15,8 +17,9 @@ Each form has
   with ``nvcc`` at first use into ``csrc/build/`` and loaded with ctypes;
 * a wrapper (:func:`rc_iteration_kernel`, :func:`rc_loop_kernel`) that
   launches the kernel for CUDA tensors, raises if it cannot, uses the
-  plain twin for CPU tensors, and counts its launches in ``.launches``
-  and the species its plan leaves to L2 reads in ``.l2_species``;
+  plain twin for CPU tensors, and counts its launches in ``.launches``,
+  those with per-column rows in ``.per_column`` and the species its plan
+  leaves to L2 reads in ``.l2_species``;
 * a plain PyTorch twin (:func:`rc_iteration_plain`,
   :func:`rc_loop_plain`) with the same signature and outputs;
 * a launch plan per kernel (:func:`plan_iteration`): threads,
@@ -57,7 +60,8 @@ _LAYER_VECS = 9
 
 class IterationPack(NamedTuple):
     """Per-configuration constants of the iteration kernels, contiguous
-    on the solve's device, for one shared planet."""
+    on the solve's device: for one shared planet, or for a population
+    with the per-column F_toa and dtau-factor rows of ``sc``."""
 
     sc: SweepConsts          # spectral rows + dtau factors
     k_tgrid: torch.Tensor    # (nT,) kappa table temperature grid [K]
@@ -74,25 +78,29 @@ def make_iteration_pack(consts, params: PhysicsParams, k_tgrid, k_tab,
                         chem) -> IterationPack:
     """Pack from the solver's ``RTConstants`` and a κ model's
     ``iteration_hook = (k_tgrid, k_tab, chem)``; ``k_tab`` is the
-    (L, S*nT, W) layer table of ``opacity.tables.make_layer_tables``."""
-    p = consts.pressures
-    dtype, device = k_tab.dtype, k_tab.device
-    c_tgrid, c_tab = chem.layer_ln_mmr_tables(p)
-    L, _, W = k_tab.shape
-    nT = k_tgrid.shape[0]
-    S = k_tab.shape[1] // nT
+    (L, S*nT, W) layer table of ``opacity.tables.make_layer_tables``.
+    A population's per-column ``consts.F_toa`` (B, W) and ``params.g``
+    (B, 1) give the pack (B, W) and (B, L-1) rows
+    (``sweep_cuda.make_sweep_consts``).  Spanned ``frei.iteration.pack``."""
+    with telemetry.span("frei.iteration.pack"):
+        p = consts.pressures
+        dtype, device = k_tab.dtype, k_tab.device
+        c_tgrid, c_tab = chem.layer_ln_mmr_tables(p)
+        L, _, W = k_tab.shape
+        nT = k_tgrid.shape[0]
+        S = k_tab.shape[1] // nT
 
-    def dev(x):
-        return torch.as_tensor(x, dtype=dtype, device=device).contiguous()
-    return IterationPack(
-        sc=make_sweep_consts(consts, params),
-        k_tgrid=dev(k_tgrid),
-        k_tab=dev(k_tab.reshape(L, S, nT, W)),
-        c_tgrid=dev(c_tgrid),
-        c_tab=dev(torch.movedim(torch.as_tensor(c_tab), 1, 2)),
-        p1e=dev(p[1:]), p2e=dev(top_pressure(p)),
-        p1a=dev(p[:-1]), p2a=dev(p[1:]),
-    )
+        def dev(x):
+            return torch.as_tensor(x, dtype=dtype, device=device).contiguous()
+        return IterationPack(
+            sc=make_sweep_consts(consts, params),
+            k_tgrid=dev(k_tgrid),
+            k_tab=dev(k_tab.reshape(L, S, nT, W)),
+            c_tgrid=dev(c_tgrid),
+            c_tab=dev(torch.movedim(torch.as_tensor(c_tab), 1, 2)),
+            p1e=dev(p[1:]), p2e=dev(top_pressure(p)),
+            p1a=dev(p[:-1]), p2a=dev(p[1:]),
+        )
 
 
 def _pressures(pack: IterationPack):
@@ -101,8 +109,8 @@ def _pressures(pack: IterationPack):
 
 
 def _pinned(params: PhysicsParams, like) -> PhysicsParams:
-    """Physics scalars as 0-d tensors in the solve's dtype and device,
-    as the kernels see them."""
+    """Physics parameters as tensors in the solve's dtype and device, as
+    the kernels see them: scalars 0-d, per-column values as given."""
     def t(x):
         return torch.as_tensor(x, dtype=like.dtype, device=like.device)
     return PhysicsParams(g=t(params.g), m_bar=t(params.m_bar),
@@ -260,10 +268,11 @@ class _IterArgs(ctypes.Structure):
         "c_tab", "c1", "xrow", "sigma", "f_toa", "tw", "dtf_emit",
         "dtf_absorb", "p1e", "p2e", "p1a", "p2a", "F_up_out", "F_down_out",
         "T1", "T2", "dT2", "temps_out", "hist", "max_dT", "n_iters",
-        "conv", "sums")]
+        "conv", "sums", "phys")]
+        + [(name, ctypes.c_int) for name in (
+            "ftoa_stride", "dtf_stride", "phys_stride")]
         + [(name, ctypes.c_double) for name in (
-            "g", "m_bar", "alpha", "n_dof", "k_B", "sigma_sb",
-            "convergence_dT")]
+            "n_dof", "k_B", "sigma_sb", "convergence_dT")]
         + [(name, ctypes.c_int) for name in (
             "B", "L", "W", "S", "nT", "nTc", "n_timesteps",
             "n_zero_crossings", "threads", "npt", "depth", "rows", "smem",
@@ -407,18 +416,30 @@ def _card_plan(F_up, dims, loop: bool) -> IterationPlan:
     return plan_iteration(W, L, S, elem, loop, blocks)
 
 
-def _scalar(x) -> float:
-    """A physics scalar as a Python float; a tensor must hold one value
-    (per-column parameters are not supported by the kernels)."""
-    if torch.is_tensor(x) and x.numel() != 1:
-        raise ValueError("the iteration kernels take scalar physics "
-                         f"parameters, got a tensor of shape {tuple(x.shape)}")
-    return float(x)
+def _phys_rows(params: PhysicsParams, pack: IterationPack, B: int,
+               like) -> torch.Tensor:
+    """(g, m_bar, alpha) as the kernels read them: a (1, 3) row for one
+    shared planet, or (B, 3) where any of them is per column (a scalar,
+    a (B,) or a (B, 1) tensor each), in the solve's dtype and device.  A
+    per-column g needs the pack's per-column dtau factors, which it
+    divides."""
+    cols = [torch.as_tensor(x, dtype=like.dtype, device=like.device)
+            .reshape(-1, 1) for x in (params.g, params.m_bar, params.alpha)]
+    n = max(c.shape[0] for c in cols)
+    if n not in (1, B) or any(c.shape[0] not in (1, n) for c in cols):
+        raise ValueError(f"per-column physics parameters need {B} values "
+                         f"(one per column) or one, got "
+                         f"{[c.shape[0] for c in cols]}")
+    if cols[0].shape[0] > 1 and pack.sc.dtf_emit.ndim == 1:
+        raise ValueError("a per-column g needs the pack's per-column dtau "
+                         "factors: build the pack with the same params")
+    return torch.cat([c.expand(n, 1) for c in cols], 1).contiguous()
 
 
 def _check(temps, F_up, F_down, pack: IterationPack):
     """Check device, dtype, shape and contiguity of every argument;
-    returns (B, L, W, S, nT, nTc)."""
+    returns (B, L, W, S, nT, nTc).  The F_toa and dtau-factor rows are
+    shared (1-D) or one per column."""
     B, L, W = F_up.shape
     dtype, device = F_up.dtype, F_up.device
     if dtype not in (torch.float32, torch.float64):
@@ -427,15 +448,19 @@ def _check(temps, F_up, F_down, pack: IterationPack):
     _, S, nT, _ = pack.k_tab.shape
     nTc = pack.c_tgrid.shape[0]
     sc = pack.sc
+
+    def rows(x, n):
+        return (B, n) if x.ndim == 2 else (n,)
     shapes = {
         "temps": (temps, (B, L)), "F_up": (F_up, (B, L, W)),
         "F_down": (F_down, (B, L, W)), "k_tgrid": (pack.k_tgrid, (nT,)),
         "k_tab": (pack.k_tab, (L, S, nT, W)),
         "c_tgrid": (pack.c_tgrid, (nTc,)), "c_tab": (pack.c_tab, (L, S, nTc)),
         "c1": (sc.c1, (W,)), "xrow": (sc.xrow, (W,)),
-        "sigma": (sc.sigma, (W,)), "f_toa": (sc.f_toa, (W,)),
-        "tw": (sc.tw, (W,)), "dtf_emit": (sc.dtf_emit, (L - 1,)),
-        "dtf_absorb": (sc.dtf_absorb, (L - 1,))}
+        "sigma": (sc.sigma, (W,)), "f_toa": (sc.f_toa, rows(sc.f_toa, W)),
+        "tw": (sc.tw, (W,)),
+        "dtf_emit": (sc.dtf_emit, rows(sc.dtf_emit, L - 1)),
+        "dtf_absorb": (sc.dtf_absorb, rows(sc.dtf_emit, L - 1))}
     for name in ("p1e", "p2e", "p1a", "p2a"):
         shapes[name] = (getattr(pack, name), (L - 1,))
     for name, (t, shape) in shapes.items():
@@ -454,7 +479,8 @@ def _check(temps, F_up, F_down, pack: IterationPack):
     return B, L, W, S, nT, nTc
 
 
-def _args(temps, F_up, F_down, pack, params, dims, plan, sums, **extra):
+def _args(temps, F_up, F_down, pack, phys, params, dims, plan, sums,
+          **extra):
     B, L, W, S, nT, nTc = dims
     sc = pack.sc
     return _IterArgs(
@@ -469,8 +495,10 @@ def _args(temps, F_up, F_down, pack, params, dims, plan, sums, **extra):
         dtf_emit=sc.dtf_emit.data_ptr(),
         dtf_absorb=sc.dtf_absorb.data_ptr(), p1e=pack.p1e.data_ptr(),
         p2e=pack.p2e.data_ptr(), p1a=pack.p1a.data_ptr(),
-        p2a=pack.p2a.data_ptr(), g=_scalar(params.g),
-        m_bar=_scalar(params.m_bar), alpha=_scalar(params.alpha),
+        p2a=pack.p2a.data_ptr(), phys=phys.data_ptr(),
+        ftoa_stride=W if sc.f_toa.ndim == 2 else 0,
+        dtf_stride=L - 1 if sc.dtf_emit.ndim == 2 else 0,
+        phys_stride=3 if phys.shape[0] > 1 else 0,
         n_dof=float(params.n_dof), k_B=const.k_B, sigma_sb=const.sigma_sb,
         B=B, L=L, W=W, S=S, nT=nT, nTc=nTc, **extra)
 
@@ -485,9 +513,12 @@ def _launch(name, device, dtype, args):
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
-def _count(wrapper, S: int, plan: IterationPlan):
-    """Count a launch and the species its plan reads from L2."""
+def _count(wrapper, S: int, plan: IterationPlan, args: _IterArgs):
+    """Count a launch, whether it read per-column rows, and the species
+    its plan reads from L2."""
     wrapper.launches += 1
+    wrapper.per_column += int(bool(args.ftoa_stride or args.dtf_stride
+                                   or args.phys_stride))
     wrapper.l2_species += S - (plan.rows - 1) // 2
 
 
@@ -504,12 +535,13 @@ def _iteration(temps, F_up, F_down, done, pack, params, with_sums):
     T1, T2, dT2 = (torch.empty_like(temps) for _ in range(3))
     sums = temps.new_empty((B, 2, 4, L - 1)) if with_sums else None
     plan = _card_plan(F_up, dims, loop=False)
-    args = _args(temps, F_up, F_down, pack, params, dims, plan, sums,
+    phys = _phys_rows(params, pack, B, temps)
+    args = _args(temps, F_up, F_down, pack, phys, params, dims, plan, sums,
                  done=done.data_ptr(), F_up_out=Fu.data_ptr(),
                  F_down_out=Fd.data_ptr(), T1=T1.data_ptr(),
                  T2=T2.data_ptr(), dT2=dT2.data_ptr())
     _launch("iteration", F_up.device, F_up.dtype, args)
-    _count(rc_iteration_kernel, dims[3], plan)
+    _count(rc_iteration_kernel, dims[3], plan, args)
     return (T1, Fu, Fd, T2, dT2) + ((sums,) if with_sums else ())
 
 
@@ -518,8 +550,10 @@ def rc_iteration_kernel(temps, F_up, F_down, done, pack: IterationPack,
     """One RC step: the CUDA kernel for CUDA tensors,
     :func:`rc_iteration_plain` for CPU tensors.  ``done`` is a (B,) bool
     freeze mask.  Returns ``(T1, F_up, F_down, T2, dT2)``, plus the
-    quadratures diagnostic with ``with_sums``.  Physics scalars given as
-    CUDA tensors cost a host sync; pass Python floats on the hot path."""
+    quadratures diagnostic with ``with_sums``.  ``params``' g, m_bar and
+    alpha are scalars or per column (B,) or (B, 1), as the pack's rows
+    are shared or per column; pass tensors on the solve's device, as the
+    solver does: a Python float is uploaded at every launch."""
     if F_up.device.type == "cpu":
         return rc_iteration_plain(temps, F_up, F_down, done, pack, params,
                                   with_sums)
@@ -536,7 +570,8 @@ def rc_loop_kernel(temps, F_up, F_down, pack: IterationPack,
     """The whole fixed-horizon RC loop: the CUDA kernel for CUDA tensors,
     :func:`rc_loop_plain` for CPU tensors.  Returns ``(temps, F_up,
     F_down, hist, max_dT, n_iters, converged)``, plus the last live
-    step's quadratures with ``with_sums``."""
+    step's quadratures with ``with_sums``.  ``params`` as for
+    :func:`rc_iteration_kernel`."""
     if F_up.device.type == "cpu":
         return rc_loop_plain(temps, F_up, F_down, pack, params, n_timesteps,
                              n_zero_crossings, convergence_dT, with_sums)
@@ -555,7 +590,9 @@ def rc_loop_kernel(temps, F_up, F_down, pack: IterationPack,
         conv = torch.empty((B, L), dtype=torch.bool, device=temps.device)
         sums = temps.new_empty((B, 2, 4, L - 1)) if with_sums else None
         plan = _card_plan(F_up, dims, loop=True)
-        args = _args(temps, F_up, F_down, pack, params, dims, plan, sums,
+        phys = _phys_rows(params, pack, B, temps)
+        args = _args(temps, F_up, F_down, pack, phys, params, dims, plan,
+                     sums,
                      F_up_out=Fu.data_ptr(), F_down_out=Fd.data_ptr(),
                      temps_out=tout.data_ptr(), hist=hist.data_ptr(),
                      max_dT=maxdt.data_ptr(), n_iters=n_iters.data_ptr(),
@@ -564,10 +601,10 @@ def rc_loop_kernel(temps, F_up, F_down, pack: IterationPack,
                      n_timesteps=int(n_timesteps),
                      n_zero_crossings=min(int(n_zero_crossings), 2 ** 31 - 1))
         _launch("loop", F_up.device, F_up.dtype, args)
-        _count(rc_loop_kernel, dims[3], plan)
+        _count(rc_loop_kernel, dims[3], plan, args)
     return (tout, Fu, Fd, hist, maxdt, n_iters, conv) + (
         (sums,) if with_sums else ())
 
 
-rc_iteration_kernel.launches = rc_iteration_kernel.l2_species = 0
-rc_loop_kernel.launches = rc_loop_kernel.l2_species = 0
+for _w in (rc_iteration_kernel, rc_loop_kernel):
+    _w.launches = _w.per_column = _w.l2_species = 0

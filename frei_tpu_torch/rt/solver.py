@@ -22,12 +22,14 @@ trajectory it would follow alone.  Engines:
 * ``"loop"`` (JAX ``"pallas-loop"``): one kernel runs the whole
   fixed-horizon loop, then one final emit.
 
-The last two need a κ model with an ``iteration_hook`` and one shared
-planet; on CPU tensors they run their kernels' plain twins.  ``"auto"``
-picks ``"cuda"`` for CUDA tensors and ``"eager"`` otherwise.
+The last two need a κ model with an ``iteration_hook``; on CPU tensors
+they run their kernels' plain twins.  ``"auto"`` picks ``"cuda"`` for
+CUDA tensors and ``"eager"`` otherwise.
 
-``"eager"`` and ``"cuda"`` also solve a population, one planet per
-column: per-column g, alpha, m_bar and F_toa (:func:`solve_rc_batched`).
+Every engine also solves a population, one planet per column:
+per-column g, alpha, m_bar and F_toa (:func:`solve_rc_batched`).  The
+JAX package's whole-iteration engines refuse a population; here the
+kernels read each column's rows.
 
 On a bins-sharded mesh (``parallel.solve_ensemble`` sets
 ``cfg.bins_axis``) each rank solves a slice of the wavelengths:
@@ -181,12 +183,6 @@ def _resolve_engine(engine: str, device: torch.device,
     return engine
 
 
-def _per_column(consts, params) -> bool:
-    return consts.F_toa.ndim != 1 or any(
-        torch.as_tensor(x).ndim for x in (params.g, params.m_bar,
-                                           params.alpha))
-
-
 def _normalize_columns(consts, params, B, dtype, device):
     """Population mode (`frei_tpu/rt/solver.py:367-413`): any physics
     scalar may be a (B,) tensor and ``consts.F_toa`` may be (B, W), one
@@ -229,16 +225,11 @@ def _normalize_columns(consts, params, B, dtype, device):
     return consts, params
 
 
-def _check_whole_iteration(engine, cfg: SolverConfig, consts, params,
-                           hook):
+def _check_whole_iteration(engine, cfg: SolverConfig, hook):
     """The JAX package's guards of its whole-iteration engines
-    (`frei_tpu/rt/solver.py:444-476`), with this package's engine
-    names."""
-    if _per_column(consts, params):
-        # the kernels bake F_toa / g into their constant pack
-        raise ValueError(
-            f"engine {engine!r} does not support per-column params / "
-            "F_toa (population mode); use engine 'cuda' or 'eager'")
+    (`frei_tpu/rt/solver.py:444-476`), with this package's engine names,
+    but for its refusal of a population: these kernels read per-column
+    F_toa, dtau-factor and physics rows."""
     if cfg.bins_axis:
         # the kernels compute the dT epilogue from their own quadratures
         # with no all-reduce over a bins-sharded mesh
@@ -312,8 +303,9 @@ def solve_rc_batched(init_temps, consts: RTConstants, params: PhysicsParams,
 
     Population mode: ``params.g``, ``params.alpha`` and ``params.m_bar``
     may each be a scalar or a (B,) tensor, and ``consts.F_toa`` (W,),
-    (1, W) or (B, W); a size-1 value is shared by every column.  The
-    ``"iteration"`` and ``"loop"`` engines refuse per-column values.
+    (1, W) or (B, W); a size-1 value is shared by every column.  Every
+    engine takes them; on each, column b equals a shared-planet solve of
+    planet b.
 
     ``cfg.differentiable``: gradients reach ``init_temps``, every tensor
     field of ``params``, ``consts.F_toa`` and ``init_fluxes`` (see the
@@ -336,7 +328,7 @@ def solve_rc_batched(init_temps, consts: RTConstants, params: PhysicsParams,
         consts, params = _normalize_columns(consts, params, B, dtype, device)
         hook = getattr(kappa_all, "iteration_hook", None)
         if engine in ("iteration", "loop"):
-            _check_whole_iteration(engine, cfg, consts, params, hook)
+            _check_whole_iteration(engine, cfg, hook)
         _check_supported(cfg, mesh)
         group = _bins_group(cfg, mesh)
 
@@ -345,10 +337,6 @@ def solve_rc_batched(init_temps, consts: RTConstants, params: PhysicsParams,
                                               rc_iteration_kernel,
                                               rc_loop_kernel)
             pack = make_iteration_pack(consts, params, *hook)
-            # the kernels take the scalars as arguments: one host read per
-            # solve, not one per launch
-            scal = PhysicsParams(*(float(x) for x in (
-                params.g, params.m_bar, params.alpha)), n_dof=params.n_dof)
             # their final emit runs on the sweep kernels on a CUDA device and
             # on the eager sweeps otherwise
             sweeps = "cuda" if device.type == "cuda" else "eager"
@@ -418,7 +406,7 @@ def solve_rc_batched(init_temps, consts: RTConstants, params: PhysicsParams,
         if engine == "loop":
             # the whole fixed-horizon loop in one kernel launch
             (temps, F_up, F_down, hist, maxdT, n_iters,
-             conv) = rc_loop_kernel(temps, F_up, F_down, pack, scal,
+             conv) = rc_loop_kernel(temps, F_up, F_down, pack, params,
                                     cfg.n_timesteps, cfg.n_zero_crossings,
                                     cfg.convergence_dT)
             telemetry.check_finite("loop kernel's outputs", temps, F_up,
@@ -442,7 +430,7 @@ def solve_rc_batched(init_temps, consts: RTConstants, params: PhysicsParams,
                 if engine == "iteration":
                     # one kernel per RC step, the flux freeze inside it
                     T1, Fu2, Fd2, T2, dT2 = rc_iteration_kernel(
-                        temps, F_up, F_down, done, pack, scal)
+                        temps, F_up, F_down, done, pack, params)
                     telemetry.check_finite(f"RC step of iteration {it}", T1,
                                            Fu2, Fd2, T2)
                 else:

@@ -608,6 +608,88 @@ def test_loop_kernel_stages_every_species(monkeypatch):
         assert torch.equal(a, b), name
 
 
+#: eight planets (a/R*, m_bar [m_p], g [m/s^2], T*, alpha), bench.py's
+#: bounds, cycled over a population's columns
+_PLANETS8 = ((5.0, 2.4, 24.79, 5800.0, 1.0), (9.0, 2.4, 10.0, 4500.0, 1.5),
+             (6.4, 2.4, 50.0, 6300.0, 1.0), (4.0, 2.4, 15.0, 5000.0, 0.8),
+             (7.5, 2.4, 35.0, 6000.0, 1.2), (5.5, 2.4, 20.0, 5500.0, 1.0),
+             (8.2, 2.4, 12.0, 4800.0, 1.4), (6.0, 2.4, 28.0, 5900.0, 0.9))
+
+
+def _four_species_grid():
+    """A float64 grid at 500 bins x 30 layers with the four equilibrium
+    species (``_equilibrium_chemistry``) on seeded tables of distinct T
+    and P dependence; its κ model has the iteration hook."""
+    grid = Grid(Planet.from_hot_jupiter(), n_wl_bins=500, n_layers=30,
+                T_ref=2400.0, dtype=torch.float64, device="cuda")
+    g = grid.rt_grid
+    chem = _equilibrium_chemistry()
+    rng = np.random.RandomState(13)
+    tdep = np.linspace(0.5, 1.5, 30)[:, None, None]
+    pdep = np.linspace(0.8, 1.2, 30)[None, :, None]
+    grid.load_opacities(opacities={
+        iso: (rng.uniform(0.1, 1.0, (30, 30, 500)) * tdep * pdep
+              * 10.0 ** k, g.init_temperatures, g.pressures_bar)
+        for k, iso in enumerate(chem.isotopologues)}, chemistry=chem)
+    assert grid._kappa_fn.iteration_hook is not None
+    return grid, grid._kappa_fn
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["loop", "iteration"])
+def test_population_on_whole_iteration_engines_is_each_planets_solve(
+        engine):
+    """A population of 8192 columns, the eight planets of ``_PLANETS8``
+    cycled over them, with four species in equilibrium, float64, 20
+    iterations (both exits off) through ``solve_population``'s rows
+    (``f_toa_rows``, per-column g and alpha): every column bit for bit
+    its planet's shared-planet solve of the same profiles on the same
+    engine, one launch (a step) with per-column rows counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the iteration kernels run only "
+                    "on the card")
+    from frei_tpu_torch.ops import iteration_cuda as IC
+    from frei_tpu_torch.rt.solver import SolverConfig, solve_rc_batched
+    from frei_tpu_torch.stellar.irradiation import f_toa_rows
+    grid, kappa = _four_species_grid()
+    planets = [Planet(*p) for p in _PLANETS8] * 1024
+    n = len(planets)
+    rng = np.random.RandomState(17)
+    T0 = torch.as_tensor(np.asarray(grid.init_temperatures)[None, :]
+                         * rng.uniform(0.95, 1.05, (n, 1)),
+                         dtype=torch.float64, device="cuda")
+    col = torch.tensor([(p.T_star, p.a_rstar, p.g, p.alpha)
+                        for p in planets], dtype=torch.float64,
+                       device="cuda").T.contiguous()
+    lam = grid.rt_grid.lam_cm
+    cfg = SolverConfig(n_timesteps=20 if engine == "loop" else 5,
+                       n_zero_crossings=10 ** 6, convergence_dT=0.0,
+                       engine=engine)
+    wrapper = IC.rc_loop_kernel if engine == "loop" \
+        else IC.rc_iteration_kernel
+    n0 = (wrapper.launches, wrapper.per_column)
+    pop = solve_rc_batched(
+        T0, grid._consts._replace(F_toa=f_toa_rows(lam, col[0], col[1],
+                                                   torch.float64)),
+        PhysicsParams(g=col[2], m_bar=planets[0].m_bar, alpha=col[3]),
+        kappa, cfg)
+    torch.cuda.synchronize()
+    launches = 1 if engine == "loop" else cfg.n_timesteps
+    assert (wrapper.launches - n0[0], wrapper.per_column - n0[1]) == (
+        launches, launches)
+    for j, p in enumerate(planets[:8]):
+        row = f_toa_rows(lam, col[0, j:j + 1], col[1, j:j + 1],
+                         torch.float64)[0]
+        one = solve_rc_batched(T0, grid._consts._replace(F_toa=row),
+                               p.physics_params(), kappa, cfg)
+        torch.cuda.synchronize()
+        for f in ("flux", "final_temps", "temp_history", "max_dT_history",
+                  "dtaus", "loop_temps", "loop_F_up", "loop_F_down",
+                  "n_iterations"):
+            assert torch.equal(getattr(pop, f)[j::8],
+                               getattr(one, f)[j::8]), (engine, j, f)
+
+
 @pytest.mark.cuda
 def test_iteration_kernels_reject_bad_arguments():
     if not torch.cuda.is_available():
@@ -624,7 +706,13 @@ def test_iteration_kernels_reject_bad_arguments():
         IC.rc_loop_kernel(T.double(), Fu, Fd, pack, params, 1, 2, 3.0)
     with pytest.raises(ValueError, match="done"):
         IC.rc_iteration_kernel(T, Fu, Fd, done.float(), pack, params)
-    with pytest.raises(ValueError, match="scalar physics"):
+    # per-column physics: one value a column or one for all, and a g per
+    # column only with the pack's per-column dtau factors
+    with pytest.raises(ValueError, match="need 5 values"):
+        IC.rc_loop_kernel(T, Fu, Fd, pack,
+                          params._replace(alpha=torch.full((4,), 0.1)),
+                          1, 2, 3.0)
+    with pytest.raises(ValueError, match="per-column dtau factors"):
         IC.rc_loop_kernel(T, Fu, Fd, pack,
                           params._replace(g=torch.full((5,), params.g)),
                           1, 2, 3.0)

@@ -354,15 +354,23 @@ def test_size1_per_column_values_broadcast(setup):
 
 @pytest.mark.parametrize("engine", ["iteration", "loop"])
 def test_population_refused_by_whole_iteration_engines(setup, engine):
-    """The whole-iteration kernels bake F_toa and g into their constant
-    pack: a population is refused with the JAX package's message
-    (`tests/test_parallel.py:324-336`)."""
+    """No longer refused, where the JAX package still refuses
+    (`tests/test_parallel.py:324-336`): the whole-iteration kernels read
+    each column's F_toa, dtau-factor and physics rows.  Their twins solve
+    the population of two planets as the eager engine does (rtol 1e-10),
+    and count no kernel launch on the CPU."""
     _, tg, T_np = setup
-    with pytest.raises(ValueError, match=(
-            f"engine '{engine}' does not support per-column params / "
-            "F_toa")):
-        solve_population(torch.tensor(T_np[:2]), tg, _torch_planets(2),
-                         SolverConfig(n_timesteps=2, engine=engine))
+    from frei_tpu_torch.ops import iteration_cuda as ic
+    wrapper = {"iteration": ic.rc_iteration_kernel,
+               "loop": ic.rc_loop_kernel}[engine]
+    n0 = wrapper.launches
+    T = torch.tensor(T_np[:2])
+    got = solve_population(T, tg, _torch_planets(2),
+                           SolverConfig(n_timesteps=2, engine=engine))
+    ref = solve_population(T, tg, _torch_planets(2),
+                           SolverConfig(n_timesteps=2, engine="eager"))
+    assert wrapper.launches == n0
+    _compare(ref, got, 1e-10)
 
 
 _MESH_WORKER = r"""
